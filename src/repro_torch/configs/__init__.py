@@ -1,5 +1,5 @@
 """Architecture registry: one module per architecture (plain data; only the
-dense family runs in this port so far)."""
+dense and MoE families run in this port so far)."""
 
 from importlib import import_module
 

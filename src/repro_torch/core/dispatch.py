@@ -14,7 +14,8 @@ Modes (the reference's strings):
     pallas   - the FDP GEMM kernel: the hand-written CUDA kernel on a CUDA
                tensor, its plain version on a CPU tensor.
 
-Backward sites (``@bwd.dA``/``@bwd.dB`` through autograd), ``ragged_gemm``,
+``ragged_gemm`` is the grouped (expert) GEMM of the MoE block, forward
+only. Backward sites (``@bwd.dA``/``@bwd.dB`` through autograd),
 ``reduce_axis``, plan autotuning and trace hooks come with later slices.
 """
 
@@ -389,3 +390,65 @@ def grouped_av(p: torch.Tensor, v: torch.Tensor, *,
     B, Kh, G, Sq, Sk = p.shape
     out = _dispatch(s, cfg, p.reshape(B, Kh, G * Sq, Sk), v)
     return out.reshape(B, Kh, G, Sq, v.shape[-1])
+
+
+# -- grouped (expert) GEMM --------------------------------------------------
+def _segment_ids(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Segment id per sorted row from the group-size prefix sums; rows beyond
+    sum(group_sizes) get id E (no group). Computed on the device."""
+    bounds = torch.cumsum(group_sizes, dim=0)
+    rows = torch.arange(n_rows, device=group_sizes.device)
+    return (rows[:, None] >= bounds[None, :]).sum(dim=1)
+
+
+def _fit_ragged(plan: GemmPlan, axis: str, n_rows: int, n_groups: int) -> GemmPlan:
+    """Clamp the plan's token-axis block to the mean segment size (8-aligned),
+    as the reference does for its tile walk. The CUDA kernel has no token
+    block (one block row per token), so no launch reads the result."""
+    block = min(getattr(plan, axis), _ceil8(max(1, n_rows // max(1, n_groups))))
+    if block == getattr(plan, axis):
+        return plan
+    return dataclasses.replace(plan, **{axis: block})
+
+
+def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
+                    w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """The mode switch of ``ragged_gemm``.
+
+    native   - every group's matmul over all T rows, then row t takes its
+               group's row (T x E work, like the reference's simulate path;
+               ``jax.lax.ragged_dot`` has no torch counterpart). Nothing is
+               read on the host, and rows past the total are 0.0.
+    simulate - ``core.fdp.fdp_ragged_gemm``: one FDP GEMM per group on its
+               rows (reads the group sizes on the host; the plain oracle).
+    pallas   - the sorted-segment kernel (its plain version on the CPU)."""
+    _note_site(site.key)
+    if cfg.mode == "native":
+        if not isinstance(cfg.fmt, FloatFormat):
+            raise ValueError(f"native mode needs a float format, not {cfg.fmt.name}")
+        E = w.shape[0]
+        per_expert = torch.matmul(cfg.fmt.quantize(x), cfg.fmt.quantize(w))  # (E,T,f)
+        seg = _segment_ids(group_sizes, x.shape[0])
+        rows = torch.arange(x.shape[0], device=x.device)
+        out = per_expert[seg.clamp(max=E - 1), rows]
+        return torch.where((seg < E)[:, None], out, 0.0)
+    if isinstance(cfg.fmt, FloatFormat):
+        x, w = cfg.fmt.quantize(x), cfg.fmt.quantize(w)
+    if cfg.mode == "simulate":
+        from . import fdp
+        return fdp.fdp_ragged_gemm(x, w, group_sizes, cfg.acc, cfg.fmt)
+    from repro_torch.kernels import ops as kops
+    return kops.fdp_ragged_gemm(x, w, group_sizes, spec=cfg.acc, fmt=cfg.fmt)
+
+
+def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+                site: Union[str, GemmSite] = "moe_expert",
+                policy: Optional[NumericsPolicy] = None) -> torch.Tensor:
+    """Grouped (expert) GEMM: ``x (T, d)`` rows sorted by group, ``w (E, d,
+    f)`` per-group weights, ``group_sizes (E,)`` rows per group. Output ``(T,
+    f)`` f32: row t contracts against its group's weight matrix, rows beyond
+    ``sum(group_sizes)`` are 0.0. Forward only (the backward sites come with
+    training)."""
+    pol = policy or current_policy()
+    s = GemmSite.parse(site)
+    return _ragged_execute(s, pol.lookup(s), x, w, group_sizes)

@@ -81,3 +81,25 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
              fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
     """GEMM with FDP accumulation: (M,K) @ (K,N) -> (M,N) f32."""
     return acc.to_float(spec, fdp_gemm_limbs(a, b, spec, fmt))
+
+
+def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                    spec: AccumulatorSpec,
+                    fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
+    """Grouped (expert) GEMM with FDP accumulation: ``x (T, d)`` rows sorted
+    by group, ``w (E, d, f)``, ``group_sizes (E,)`` -> ``(T, f)`` f32. Row t
+    contracts against its group's weights; rows past ``sum(group_sizes)``
+    are 0.0. One ``fdp_gemm`` per non-empty group on its rows (T*d*f
+    products; the reference's ``simulate`` mode runs every group over all T
+    rows and selects, which gives the same bits because each output row
+    depends only on its own row and weights). Reads the group sizes on the
+    host."""
+    T, f = x.shape[0], w.shape[2]
+    out = torch.zeros((T, f), dtype=torch.float32, device=x.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        stop = min(T, start + n)
+        if stop > start:
+            out[start:stop] = fdp_gemm(x[start:stop], w[e], spec, fmt)
+        start = stop
+    return out

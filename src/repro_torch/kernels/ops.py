@@ -1,10 +1,10 @@
-"""Public wrappers around the FDP GEMM kernel (counterpart of
-``repro.kernels.ops``, 2-D and batched entry points).
+"""Public wrappers around the FDP kernels (counterpart of
+``repro.kernels.ops``: 2-D, batched and sorted-segment entry points).
 
 Every entry point takes ``plan: GemmPlan | None`` as the reference's
 GemmPlan-first API does, and a given plan is checked through
-``resolve_plan``. The CUDA kernel's tile is fixed (``csrc/fdp_gemm.cu``) and
-it masks ragged edges itself, so no operand is padded and no plan changes a
+``resolve_plan``. The CUDA kernels' tile is fixed (``csrc/``) and they mask
+ragged edges themselves, so no operand is padded and no plan changes a
 launch.
 """
 
@@ -47,6 +47,17 @@ def fdp_gemm_batched(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
     if plan is not None:
         resolve_plan(plan, a.shape[1], b.shape[2], a.shape[2])
     return _k.fdp_gemm(a, b, spec=spec, fmt=fmt)
+
+
+def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+                    spec: AccumulatorSpec, fmt=FP32,
+                    plan: GemmPlan | None = None) -> torch.Tensor:
+    """Sorted-segment grouped GEMM: ``x (T, d)`` rows sorted by group, ``w
+    (E, d, f)``, ``group_sizes (E,)`` -> ``(T, f)`` f32, rows past
+    ``sum(group_sizes)`` zero, in one launch of the sorted-segment kernel."""
+    if plan is not None:
+        resolve_plan(plan, x.shape[0], w.shape[2], x.shape[1])
+    return _k.fdp_ragged_gemm(x, w, group_sizes, spec=spec, fmt=fmt)
 
 
 def matmul_batching(f2d, f3d):

@@ -4,8 +4,8 @@ engine): prefill + greedy incremental decode with an f32 KV cache.
 On the card, under the FDP kernel policy:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --policy fdp91_kernel
-On the CPU at test size:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+On the CPU at test size (any dense or MoE architecture, e.g. dbrx-132b):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --reduced --device cpu
 
 ``--policy`` picks one of the named uniform policies until precision plans

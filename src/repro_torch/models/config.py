@@ -8,9 +8,8 @@ from typing import Optional
 
 # Families the port runs, and the ROADMAP item (queue 1) that brings each of
 # the others.
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 _FAMILY_ITEMS = {
-    "moe": "ROADMAP queue 1 item 7 (MoE)",
     "ssm": "ROADMAP queue 1 item 13 (the other families)",
     "hybrid": "ROADMAP queue 1 item 13 (the other families)",
     "encdec": "ROADMAP queue 1 item 13 (the other families)",

@@ -1,5 +1,5 @@
-"""Model assembly (counterpart of ``repro.models.transformer``), dense family
-on one device:
+"""Model assembly (counterpart of ``repro.models.transformer``), dense and
+MoE families on one device:
 
     params = init(cfg, seed, device)               # a Transformer module
     logits = forward(params, cfg, batch)           # prefill logits
@@ -20,11 +20,13 @@ from torch import nn
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import moe as MOE
 from .config import ModelConfig, check_family
 
 
 class Block(nn.Module):
-    """One decoder block: attn_norm, attn, mlp_norm, mlp."""
+    """One decoder block: attn_norm, attn, mlp_norm, then moe (when the
+    config has experts) or mlp."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None):
         super().__init__()
@@ -32,7 +34,11 @@ class Block(nn.Module):
         self.attn_norm = ones()
         self.attn = L.init_attention(gen, cfg, dtype, device)
         self.mlp_norm = ones()
-        self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        if cfg.n_experts:
+            self.moe = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                    dtype, device)
+        elif cfg.d_ff:
+            self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
 class Transformer(nn.Module):
@@ -67,7 +73,10 @@ def _decoder_block(x, p: Block, cfg, *, positions, prefix_len=0, kv_cache=None):
         L.rms_norm(x, p.attn_norm, cfg.norm_eps), p.attn, cfg, causal=True,
         prefix_len=prefix_len, positions=positions, kv_cache=kv_cache)
     x = x + h
-    x = x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg)
+    if cfg.n_experts:
+        x = x + MOE.moe_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.moe, cfg)
+    elif cfg.d_ff:
+        x = x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg)
     return x, new_cache
 
 

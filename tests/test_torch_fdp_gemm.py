@@ -139,3 +139,30 @@ def test_wrapper_checks_its_inputs():
     ops = tk.int32_ops(4 * 1024, 1024 * 151936, products)
     assert ops == 8 * (4 * 1024 + 1024 * 151936) + 20 * products
     assert ops < tk.int32_ops(4 * 1024, 1024 * 151936, products, rne=True)
+
+
+def test_build_tags_every_library_with_all_of_csrc(tmp_path, monkeypatch):
+    """One library per ``.cu``, built by one compiler process each; the tag
+    hashes every file of ``csrc/``, so editing the shared header rebuilds
+    both and an unchanged tree rebuilds nothing."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name, text in (("one.cu", "// one"), ("two.cu", "// two"), ("common.cuh", "// v1")):
+        (csrc / name).write_text(text)
+    calls = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "$@" >> "%s"\nwhile [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then shift; : > "$1"; fi; shift\ndone\n' % calls)
+    fake.chmod(0o755)
+    monkeypatch.setattr(tk, "_CSRC", csrc)
+    monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(tk, "_nvcc", lambda: str(fake))
+    first = tk.build()
+    assert sorted(first) == ["one", "two"] and all(p.exists() for p in first.values())
+    assert len(calls.read_text().splitlines()) == 2
+    assert tk.build() == first                              # nothing changed
+    assert len(calls.read_text().splitlines()) == 2
+    (csrc / "common.cuh").write_text("// v2")
+    second = tk.build()
+    assert set(second.values()).isdisjoint(first.values())
+    assert len(calls.read_text().splitlines()) == 4

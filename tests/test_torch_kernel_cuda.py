@@ -45,3 +45,52 @@ def test_kernel_bit_equal_to_plain_on_card():
         torch.cuda.synchronize()
         assert torch.equal(want, got), (B, M, K, N, fmt_name, spec_name)
 
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_bit_equal_to_plain_on_card():
+    """The sorted-segment kernel against its plain version: zero-size groups
+    (leading and trailing), rows past the total, a strided weight view, and
+    every format; then the MoE block under the kernel policy reads nothing
+    on the host (``set_sync_debug_mode("error")`` raises on any sync)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch as TD
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import moe as TM
+
+    g = torch.Generator().manual_seed(1)
+    cases = [(50, 70, 40, [0, 9, 0, 14, 7, 0], "ieee_fp32", "paper_91bit"),
+             (24, 33, 9, [0, 0, 24], "bfloat16", "rne"),
+             (16, 64, 40, [5, 0, 11, 0], "posit16_1", "saturate")]
+    for T, d, f, gs, fmt_name, spec_name in cases:
+        tf = tfmt.get_format(fmt_name)
+        ts = tacc.AccumulatorSpec(**SPEC_ARGS[spec_name])
+        x, w = torch.randn(T, d, generator=g), torch.randn(len(gs), d, 2 * f, generator=g)
+        if isinstance(tf, tfmt.PositFormat):
+            x, w = tf.from_float(x), tf.from_float(w)
+        x, w = x.cuda(), w.cuda()[:, :, ::2]             # a strided view
+        sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+        want = tk.fdp_ragged_gemm_plain(x, w, sizes, spec=ts, fmt=tf)
+        got = tk.fdp_ragged_gemm(x, w, sizes, spec=ts, fmt=tf)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), (T, d, f, gs, fmt_name, spec_name)
+        assert not got[sum(gs):].any()
+
+    cfg = get_config("dbrx-132b").reduced()
+    block = TM.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.Generator("cuda").manual_seed(0),
+                   device="cuda")
+    x = torch.randn(2, 3, cfg.d_model, device="cuda")
+    launches = tk.fdp_ragged_gemm.launches
+    with TD.use_policy(FDP91_KERNEL):
+        TM.moe_block(x, block, cfg)                      # warm-up: builds the kernels
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = TM.moe_block(x, block, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert tk.fdp_ragged_gemm.launches == launches + 6

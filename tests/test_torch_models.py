@@ -1,4 +1,5 @@
-"""The port's dense models against ``repro.models`` on reduced configs.
+"""The port's dense and MoE models against ``repro.models`` on reduced
+configs.
 
 The JAX side initializes the parameters; ``params_from_numpy`` hands them
 to the port. Logits agree within rtol=1e-4, atol=1e-5: every GEMM is exact
@@ -29,8 +30,10 @@ from repro_torch.models import transformer as TT  # noqa: E402
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-4, 1e-5
-# reduced qwen3 keeps qk_norm and gets GQA (2 KV heads for 4 query heads)
-REDUCED = {"qwen3-0.6b": dict(n_kv_heads=2), "paper-mlp": {}}
+# reduced qwen3 keeps qk_norm and gets GQA (2 KV heads for 4 query heads);
+# reduced dbrx (MoE: 4 experts, top-2) gets the same GQA
+REDUCED = {"qwen3-0.6b": dict(n_kv_heads=2), "paper-mlp": {},
+           "dbrx-132b": dict(n_kv_heads=2)}
 POLICIES = {"native_fp32": (JD.MXU_FP32, TD.MXU_FP32),
             "fdp91": (JD.FDP91, FDP91_KERNEL)}
 

@@ -22,14 +22,17 @@ from repro_torch.models import params_from_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 
-CASES = [("qwen3-0.6b", "fdp91"), ("paper-mlp", "fdp91"), ("qwen3-0.6b", "native_fp32")]
+CASES = [("qwen3-0.6b", "fdp91"), ("paper-mlp", "fdp91"), ("qwen3-0.6b", "native_fp32"),
+         ("dbrx-132b", "fdp91"), ("dbrx-132b", "native_fp32")]
+# GQA (2 KV heads for 4 query heads) on the reduced attention models
+OVERRIDES = {"qwen3-0.6b": dict(n_kv_heads=2), "dbrx-132b": dict(n_kv_heads=2)}
 POLICIES = {"native_fp32": (JD.MXU_FP32, TD.MXU_FP32),
             "fdp91": (JD.FDP91, TS.FDP91_KERNEL)}
 
 
 @pytest.mark.parametrize("arch,policy", CASES)
 def test_serve_tokens_equal(arch, policy):
-    over = dict(n_kv_heads=2) if arch == "qwen3-0.6b" else {}
+    over = OVERRIDES.get(arch, {})
     jc, tc = jget(arch).reduced(**over), tget(arch).reduced(**over)
     jp = JT.init(jc, jax.random.key(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, device="cpu")
@@ -43,8 +46,9 @@ def test_serve_tokens_equal(arch, policy):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_main_runs_reduced_on_cpu(capsys):
-    TS.main(["--arch", "paper-mlp", "--reduced", "--batch", "2", "--prompt-len", "3",
+@pytest.mark.parametrize("arch", ["paper-mlp", "dbrx-132b"])
+def test_main_runs_reduced_on_cpu(capsys, arch):
+    TS.main(["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "3",
              "--gen", "2", "--device", "cpu", "--policy", "fdp91_kernel"])
     out = capsys.readouterr().out
     assert "policy=fdp91_kernel device=cpu" in out and "sample:" in out
