@@ -33,24 +33,54 @@ Phases (any failure exits non-zero before the final line):
      moe_in, moe_gate, moe_out);
   6. a 1-layer cut of dbrx-132b at full width, batch 1, prompt 4: forward
      logits in ``pallas`` mode torch.equal to ``simulate`` mode;
-  7. one JSON line of per-kernel numbers, then the ``ok`` line.
+  7. the bounds of phase 2's kernel times;
+  8. the sorted-segment weight-gradient kernel (the MoE ``@bwd.dB``)
+     against its plain version on the card, torch.equal, over formats,
+     round/overflow modes, zero-size groups (leading, inner, trailing, all),
+     one group holding every row, rows past the total, one group longer
+     than SAFE_CHUNK rows, and the three full-width expert shapes of a
+     dbrx-132b training step (4 x 64 tokens, 1024 routed rows) on 64
+     columns of g, timed on the whole shape; then the dense and
+     sorted-segment kernels at that step's backward shapes, on slices: the
+     LM head's dA and dB, the router's dB, and moe_in's dX against the
+     transposed expert weights;
+  9. dbrx-132b at full width, depth cut to 1 layer, trained: three steps of
+     ``make_train_step`` (AdamW, cosine schedule, clip 1.0, both moments
+     8x64) under the FDP kernel policy, with every kernel's launch count set
+     to 0 just before the first step and read just after it, each held
+     against its sites' forward and backward dispatches; a second run from
+     the same seed must give the same parameters; three steps under native
+     fp32 as the yardstick; one traced step per policy;
+ 10. the same model at batch 1 x seq 4: loss and every gradient in
+     ``pallas`` mode torch.equal to ``simulate`` mode;
+ 11. the fault-tolerant ``Trainer`` on reduced dbrx-132b with checkpoints
+     in a temporary directory: an injected failure at step 2 is recovered,
+     and the final parameters equal those of a run without it, which must
+     not restart;
+ 12. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The bound of a kernel time is the larger of its bytes (inputs read once,
 output written once) over 3.35 TB/s (H100 SXM HBM3, NVIDIA data sheet) and
 the int32 operations the function needs (``fdp_gemm.int32_ops``: one decode
 per distinct operand element, 20 operations per product; for the
-sorted-segment kernel, the rows in a group and the weights of the non-empty
-groups) over the card's int32 rate: 132 SMs x 64 INT32 lanes (Hopper white
-paper) x 1.98 GHz (max SM clock) = 16.73e12 op/s.
+sorted-segment forward kernel, the rows in a group and the weights of the
+non-empty groups; for the weight-gradient kernel, the rows in a group of x
+and of g, and one product per (row in a group, d, f)) over the card's int32
+rate: 132 SMs x 64 INT32 lanes (Hopper white paper) x 1.98 GHz (max SM
+clock) = 16.73e12 op/s. The count leaves out the read-out of each output
+(one per dW element, E*d*f of them), which with a few dozen rows per group
+is a real share of the weight-gradient kernel's work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -59,8 +89,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH, PROMPT, GEN = 4, 16, 16
 SERVE_RUNS = 3
 MOE_LAYERS = 2          # dbrx-132b depth cut: 31.0 GB of f32 parameters
+# Training dbrx-132b: depth cut to 1 layer (17.97 GB of f32 parameters, as
+# much again of gradients, 9.1 GB of 8x64 Adam moments), 4 x 64 tokens
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 1, 4, 64, 3, 1e-4
 # kernel name -> the substring of its device symbol in a profiler trace
-TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel"}
+TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
+               "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -152,7 +186,12 @@ def main() -> None:
     from repro_torch.kernels import fdp_gemm as K
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import FDP91_KERNEL, serve
+    from repro_torch.core.qformat import parse_quant
+    from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models import forward, init
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train.loop import InjectedFailure, Trainer, make_loss_fn, make_train_step
+    from repro_torch.train.optimizer import adamw, cosine_schedule
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -524,14 +563,335 @@ def main() -> None:
             f"{INT32_OPS_PER_S:.4g} op/s, bytes at {HBM_BYTES_PER_S:.3g} B/s); kernel "
             f"{r['ms']:.4f} ms = {100 * r['bound_ms'] / r['ms']:.1f}% of bound; plain "
             f"{r['plain_ms']:.2f} ms")
+    # -- 8. the weight-gradient kernel; kernels 1 and 3 at backward shapes ----
+    tcfg = dataclasses.replace(mcfg, n_layers=TRAIN_LAYERS)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    T_rows = n_tok * mk                          # routed rows of one training step
+    gs_train = routed_sizes(n_tok, seed=6)
+
+    def dw_operands(T, dd, ff, fmt, x_scale=1.0, positive=False):
+        x = torch.randn(T, dd, generator=gen, device=dev) * x_scale
+        g = torch.randn(T, ff, generator=gen, device=dev) * ff ** -0.5
+        if positive:
+            x, g = x.abs(), g.abs()
+        return on_grid(fmt, x, g)
+
+    def dw_work(T, dd, ff, gs):
+        """Bytes and int32 operations this data needs: the rows that fall in
+        a group, of x and of g, and the sizes, read once; every dW element
+        written once; one product per (row in a group, d, f)."""
+        rows = min(T, sum(gs))
+        nbytes = 4 * (rows * dd + rows * ff + len(gs) + len(gs) * dd * ff)
+        return nbytes, K.int32_ops(rows * dd, rows * ff, rows * dd * ff)
+
+    long_rows = 9 * SAFE_CHUNK + 517
+    dw_cases = [
+        ("fp32 91-bit, empty groups leading, inner and trailing, 10 rows past the "
+         "total", (40, 70, 40, [0, 9, 0, 14, 7, 0]), FP32, P91, {}),
+        ("bf16 91-bit, odd widths", (33, 300, 33, [10, 0, 23]), BF16, P91, {}),
+        ("posit16_1 91-bit", (24, 64, 40, [0, 12, 12, 0]), POSIT16_1, P91, {}),
+        ("fp32 rne", (40, 200, 40, [0, 20, 0, 20]), FP32, RNE, {}),
+        ("fp32 saturate <2,4,-20>", (40, 200, 40, [15, 0, 25]), FP32, SAT,
+         {"x_scale": 256.0}),
+        ("fp32 every group empty", (16, 40, 40, [0, 0, 0]), FP32, P91, {}),
+        ("fp32 every row in one group", (32, 128, 64, [0, 0, 32, 0]), FP32, P91, {}),
+        ("fp32 rows past the total (28 of 48)", (48, 96, 40, [7, 0, 13, 0, 0]), FP32,
+         P91, {}),
+        (f"fp32 one group of {long_rows} rows (9 x SAFE_CHUNK + 517), positive, so "
+         f"carries normalize inside the row loop", (long_rows + 40, 4, 32,
+                                                     [0, long_rows, 0]), FP32, P91,
+         {"positive": True}),
+    ]
+    dw_err = 0.0
+    for name, (T, dd, ff, gs), fmt, spec, kw in dw_cases:
+        x, g = dw_operands(T, dd, ff, fmt, **kw)
+        sizes = torch.tensor(gs, dtype=torch.int32, device=dev)
+        want = K.fdp_ragged_dw_plain(x, g, sizes, spec=spec, fmt=fmt)
+        got = K.fdp_ragged_dw(x, g, sizes, spec=spec, fmt=fmt)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        if not torch.equal(got, want):
+            fail(f"weight-gradient kernel != plain for {name}: max |diff| {err}")
+        if any(got[e].any() for e, n in enumerate(gs) if n == 0):
+            fail(f"a zero-size group's dW is not exactly zero for {name}")
+        extra = f", {n_saturated(got, spec)} outputs saturated" if spec is SAT else ""
+        dw_err = max(dw_err, err)
+        log(f"weight-gradient kernel == plain (torch.equal): {name} x {tuple(x.shape)} "
+            f"g {tuple(g.shape)} groups {gs} {fmt.name} {spec.describe()}{extra}")
+    DW_SITES = {"moe_in": (T_rows, md, mf), "moe_gate": (T_rows, md, mf),
+                "moe_out": (T_rows, mf, md)}
+    dw_sites = {}
+    for site, (T, dd, ff) in DW_SITES.items():
+        x, g = dw_operands(T, dd, ff, FP32)
+        sizes = torch.tensor(gs_train, dtype=torch.int32, device=dev)
+        # the plain version on 64 columns of g (a strided view for moe_gate),
+        # the kernel timed on the whole shape
+        cols = slice(None, None, ff // 64) if site == "moe_gate" else slice(0, 64)
+        want = K.fdp_ragged_dw_plain(x, g[:, cols], sizes, spec=P91, fmt=FP32)
+        got = K.fdp_ragged_dw(x, g[:, cols], sizes, spec=P91, fmt=FP32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"weight-gradient kernel != plain at {site}'s training shape: max |diff| "
+                 f"{(got - want).abs().max().item()}")
+        nbytes, nops = dw_work(T, dd, ff, gs_train)
+        dw_sites[site] = {
+            "shape": [T, dd, ff], "groups": gs_train,
+            "ms": cuda_ms(torch, lambda: K.fdp_ragged_dw(x, g, sizes, spec=P91, fmt=FP32),
+                          reps=2),
+            "plain_ms": cuda_ms(torch, lambda: K.fdp_ragged_dw_plain(
+                x, g[:, cols], sizes, spec=P91, fmt=FP32), reps=1),
+            "plain_at": f"64 columns of g ({'strided' if site == 'moe_gate' else 'the first'})",
+            "outputs": len(gs_train) * dd * ff,
+            "int32_ops_per_product": nops / (T * dd * ff), **bound(nbytes, nops)}
+        log(f"weight-gradient kernel == plain (torch.equal): {site} at its training shape, "
+            f"x {tuple(x.shape)} g {tuple(g.shape)} on {dw_sites[site]['plain_at']}, "
+            f"groups {gs_train}")
+        r = dw_sites[site]
+        log(f"bound at dbrx {site}@bwd.dB: {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel "
+            f"{r['ms']:.4f} ms on the whole shape = {100 * r['bound_ms'] / r['ms']:.1f}% of "
+            f"bound; plain {r['plain_ms']:.2f} ms on {r['plain_at']}")
+        del x, g, want, got
+        torch.cuda.empty_cache()
+
+    # kernels 1 and 3 at the step's backward shapes, the plain version on slices
+    V = tcfg.padded_vocab
+    head = torch.randn(md, V, generator=gen, device=dev) * md ** -0.5
+    g_logits = torch.randn(TRAIN_BATCH, TRAIN_SEQ, V, generator=gen, device=dev) * 1e-3
+    h = torch.randn(TRAIN_BATCH, TRAIN_SEQ, md, generator=gen, device=dev)
+    w_in = torch.randn(mE, md, mf, generator=gen, device=dev) * md ** -0.5
+    g_moe = torch.randn(T_rows, mf, generator=gen, device=dev) * 1e-2
+    x_tok = torch.randn(n_tok, md, generator=gen, device=dev)
+    g_router = torch.randn(n_tok, mE, generator=gen, device=dev) * 1e-2
+    sizes = torch.tensor(gs_train, dtype=torch.int32, device=dev)
+    bwd_checks = {
+        # G (B,S,V) @ head^T (V,d) with head^T a transposed view broadcast over B
+        "lm_head@bwd.dA, 32 of 6144 columns": lambda f: f(
+            g_logits, head.T[:, :32].expand(TRAIN_BATCH, V, 32)),
+        # the flattened h^T (d,T) @ G (T,V), a transposed view, 64 of V columns
+        "lm_head@bwd.dB, 64 columns": lambda f: f(
+            h.reshape(-1, md).T[None], g_logits.reshape(-1, V)[None, :, :64]),
+        "moe_router@bwd.dB (2-D, whole)": lambda f: f(x_tok.T[None], g_router[None]),
+    }
+    for name, call in bwd_checks.items():
+        want = call(lambda a, b: K.fdp_gemm_plain(a, b, spec=P91, fmt=FP32))
+        got = call(lambda a, b: K.fdp_gemm(a, b, spec=P91, fmt=FP32))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"dense kernel != plain at {name}: max |diff| {(got - want).abs().max().item()}")
+        max_err = max(max_err, (got - want).abs().max().item())
+        log(f"dense kernel == plain (torch.equal): {name}")
+    w_t = w_in.transpose(-1, -2)[:, :, :64]              # (E, f, 64 of d), strided
+    want = K.fdp_ragged_gemm_plain(g_moe, w_t, sizes, spec=P91, fmt=FP32)
+    got = K.fdp_ragged_gemm(g_moe, w_t, sizes, spec=P91, fmt=FP32)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"sorted-segment kernel != plain at moe_in@bwd.dA: max |diff| "
+             f"{(got - want).abs().max().item()}")
+    log(f"sorted-segment kernel == plain (torch.equal): moe_in@bwd.dA, g {tuple(g_moe.shape)} "
+        f"against w^T {tuple(w_in.transpose(-1, -2).shape)} (a transposed view), 64 of "
+        f"{md} columns, groups {gs_train}")
+    del head, g_logits, h, w_in, g_moe, x_tok, g_router, w_t, want, got
+    torch.cuda.empty_cache()
+
+    # -- 9. train dbrx-132b at full width, 1 layer --------------------------
+    qcfg = parse_quant("8x64")
+    data = SyntheticLM(tcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    batches = [data.batch(i).as_dict() for i in range(TRAIN_STEPS)]
+    counters = {"fdp_gemm": K.fdp_gemm, "fdp_ragged_gemm": K.fdp_ragged_gemm,
+                "fdp_ragged_dw": K.fdp_ragged_dw}
+
+    def kernel_of(site: str) -> str:
+        name, _, phase = site.partition("@")
+        if name in MOE_SITES:
+            return "fdp_ragged_dw" if phase == "bwd.dB" else "fdp_ragged_gemm"
+        return "fdp_gemm"
+
+    def make_opt():
+        return adamw(lr=cosine_schedule(TRAIN_LR, warmup=1, total=TRAIN_STEPS),
+                     clip_norm=1.0, state_quant={"mu": qcfg, "nu": qcfg})
+
+    def checksums(params) -> dict:
+        """Per parameter, the int64 sums of its f32 bit patterns over slices
+        of 2^24 elements (no second copy of the parameters is kept)."""
+        return {n: torch.stack([torch.sum(c.view(torch.int32), dtype=torch.int64)
+                                for c in p.detach().reshape(-1).split(1 << 24)]).tolist()
+                for n, p in params.named_parameters()}
+
+    def train_run(policy, count_first=False):
+        """TRAIN_STEPS steps from seed 0: (params, opt, state, seconds per step,
+        losses, first-step launches and dispatches, peak bytes)."""
+        params = init(tcfg, seed=0, device=dev)
+        opt = make_opt()
+        state = opt.init(params)
+        step = make_train_step(tcfg, opt, remat="none", numerics_policy=policy)
+        secs, losses, first, peak = [], [], None, 0
+        for i, batch in enumerate(batches):
+            if count_first and i == 0:
+                D.reset_sites_seen()
+                for wrapper in counters.values():
+                    wrapper.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (params, state), metrics = step((params, state), batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            if count_first and i == 0:
+                first = {"launches": {n: w.launches for n, w in counters.items()},
+                         "calls": D.site_calls()}
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            losses.append(float(metrics["loss"]))
+        return params, opt, state, secs, losses, first, peak
+
+    t = time.perf_counter()
+    params, opt, state, fdp_secs, fdp_losses, first, fdp_peak = train_run(
+        FDP91_KERNEL, count_first=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"dbrx-132b at {TRAIN_LAYERS} layer, full width: {n_params / 1e9:.3f} G f32 "
+        f"parameters = {4 * n_params / 1e9:.2f} GB; AdamW moments {qcfg.tag()} "
+        f"({TO.optimizer_state_bytes(state) / 1e9:.2f} GB); batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} = {n_tok} tokens, {T_rows} routed rows; {TRAIN_STEPS} steps under "
+        f"{FDP91_KERNEL.name} in {time.perf_counter() - t:.1f} s")
+    calls = first["calls"]
+    for name, n in first["launches"].items():
+        want_n = sum(c for s, c in calls.items() if kernel_of(s) == name)
+        sites = sorted(s for s in calls if kernel_of(s) == name)
+        if n <= 0 or n != want_n:
+            fail(f"{name} launched {n} times in the first training step, its sites "
+                 f"dispatched {want_n}: {sites}")
+        log(f"  first step: {name} launches {n} == dispatches of its sites "
+            f"({', '.join(f'{s} {calls[s]}' for s in sites)})")
+    if not all(map(math.isfinite, fdp_losses)):
+        fail(f"training loss not finite: {fdp_losses}")
+    sums = checksums(params)
+    del params, opt, state
+    torch.cuda.empty_cache()
+    params, opt, state, fdp_secs2, fdp_losses2, _, _ = train_run(FDP91_KERNEL)
+    if checksums(params) != sums or fdp_losses2 != fdp_losses:
+        fail("a second training run from the same seed gave other parameters")
+    log(f"  losses {fdp_losses}; a second run from the same seed gives the same "
+        f"parameters (per-slice checksums of every parameter) and losses")
+    del params, opt, state
+    torch.cuda.empty_cache()
+    params, opt, state, fp32_secs, fp32_losses, _, fp32_peak = train_run(D.MXU_FP32)
+    fdp_med = sorted(fdp_secs2)[len(fdp_secs2) // 2]
+    fp32_med = sorted(fp32_secs)[len(fp32_secs) // 2]
+
+    def traced_step(policy):
+        step = make_train_step(tcfg, opt, remat="none", numerics_policy=policy)
+
+        def once():
+            nonlocal params, state
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (params, state), _ = step((params, state), batches[0])
+            torch.cuda.synchronize()
+            return None, time.perf_counter() - t
+        return trace_serve(torch, once)
+
+    train_traces = {pol.name: traced_step(pol) for pol in (FDP91_KERNEL, D.MXU_FP32)}
+    del params, opt, state
+    torch.cuda.empty_cache()
+    train = {"step_s": fdp_secs + fdp_secs2, "fp32_step_s": fp32_secs,
+             "median_step_s": fdp_med, "fp32_median_step_s": fp32_med,
+             "tok_s": n_tok / fdp_med, "fp32_tok_s": n_tok / fp32_med,
+             "peak_bytes": fdp_peak, "fp32_peak_bytes": fp32_peak,
+             "losses": fdp_losses, "fp32_losses": fp32_losses,
+             "launches": first["launches"], "calls": calls,
+             "trace": {n: t and {k: v for k, v in t.items() if k != "top"}
+                       for n, t in train_traces.items()}}
+    for pol, secs, med, peak in ((FDP91_KERNEL.name, fdp_secs + fdp_secs2, fdp_med, fdp_peak),
+                                 (D.MXU_FP32.name, fp32_secs, fp32_med, fp32_peak)):
+        log(f"train step under {pol}: seconds {', '.join(f'{s:.3f}' for s in secs)}; "
+            f"median (last {TRAIN_STEPS}) {med:.3f} s = {n_tok / med:.1f} trained tok/s; "
+            f"peak memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    log(f"FDP/fp32 step time {fdp_med / fp32_med:.2f}x; fp32 losses {fp32_losses}")
+    for name, t in train_traces.items():
+        if t is None:
+            log(f"traced step under {name}: torch.profiler recorded no device events, so "
+                f"device busy time and idle share are not measured")
+            continue
+        log(f"traced step under {name} (torch.profiler): wall {t['wall_s']:.3f} s, trace "
+            f"span {t['span_s']:.3f} s, device busy {t['device_busy_s']:.3f} s, idle share "
+            f"{100 * t['idle_share']:.1f}%: "
+            + "; ".join(f"{k} {v['count']} in {v['s']:.3f} s" for k, v in t["kernels"].items()))
+        log("  top device time: " + "; ".join(f"{n} {x:.3f} s" for n, x in t["top"]))
+
+    # -- 10. one loss and backward: pallas gradients == simulate gradients ----
+    params = init(tcfg, seed=0, device=dev)
+    small = SyntheticLM(tcfg.vocab_size, 4, 1, seed=7, device=dev).batch(0).as_dict()
+    loss_fn = make_loss_fn(tcfg, remat="none")
+    names, leaves = zip(*params.named_parameters())
+    simulate = D.NumericsPolicy(dataclasses.replace(FDP91_KERNEL.default, mode="simulate"))
+
+    def loss_and_grads(policy):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with D.use_policy(policy):
+            loss, _ = loss_fn(params, small)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, time.perf_counter() - t
+
+    lk, gk, tk_s = loss_and_grads(FDP91_KERNEL)
+    ls, gsim, ts_s = loss_and_grads(simulate)
+    if not bool(torch.isfinite(lk)) or not torch.equal(lk, ls):
+        fail(f"pallas loss {lk.item()} != simulate loss {ls.item()}")
+    for name, a, b in zip(names, gk, gsim):
+        if not torch.equal(a, b):
+            fail(f"pallas != simulate gradient of {name}: max |diff| "
+                 f"{(a - b).abs().max().item()}")
+    log(f"{TRAIN_LAYERS}-layer full-width dbrx-132b, batch 1 x seq 4: loss and all "
+        f"{len(names)} gradients in pallas mode torch.equal simulate mode ({tk_s:.3f} s "
+        f"kernel path, {ts_s:.3f} s plain path); every site compared whole: no column "
+        f"slice was needed (the plain version forms wide outputs a block of columns at a "
+        f"time)")
+    grads_eq = {"kernel_s": tk_s, "plain_s": ts_s, "gradients": len(names)}
+    del params, leaves, gk, gsim
+    torch.cuda.empty_cache()
+
+    # -- 11. the fault-tolerant Trainer on the card ---------------------------
+    rcfg = get_config("dbrx-132b").reduced()
+    ropt = adamw(lr=1e-3, state_quant={"mu": qcfg, "nu": qcfg})
+    rstep = make_train_step(rcfg, ropt, remat="none", numerics_policy=FDP91_KERNEL)
+    rdata = SyntheticLM(rcfg.vocab_size, 16, 4, seed=0, device=dev)
+    injected = []
+
+    def injector(step):
+        if step == 2 and not injected:
+            injected.append(step)
+            raise InjectedFailure("injected failure at step 2")
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, inj in (("injected", injector), ("clean", None)):
+            trainer = Trainer(rcfg, ropt, lambda s: rdata.batch(s).as_dict(), rstep,
+                              os.path.join(tmp, name), save_every=2, failure_injector=inj,
+                              device=dev)
+            runs[name] = (trainer.run(5)[0], trainer.restarts)
+    if injected != [2] or runs["injected"][1] != 1:
+        fail(f"the injected run restarted {runs['injected'][1]} times (want 1)")
+    if runs["clean"][1] != 0:
+        fail(f"a run without an injected failure restarted {runs['clean'][1]} times")
+    for a, b in zip(runs["injected"][0].parameters(), runs["clean"][0].parameters()):
+        if not torch.equal(a, b):
+            fail("the Trainer that recovered from the failure ended on other parameters")
+    log(f"Trainer ({rcfg.name}, {FDP91_KERNEL.name}, checkpoints every 2 steps): an "
+        f"injected failure at step 2, 1 restart, final parameters torch.equal to a run "
+        f"without the failure (0 restarts)")
+    del runs
+
     moe_in = ragged_sites["moe_in"]
+    dw_in = dw_sites["moe_in"]
     print(json.dumps({"kernels": [{
         "name": "fdp_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_gemm.cu",
         "replaces": "src/repro/kernels/fdp_gemm.py:65",
-        "launches": qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"],
+        "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
+                     + train["launches"]["fdp_gemm"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
-                             "dbrx-132b serve": dbrx["launches"]["fdp_gemm"]},
+                             "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
+                             "dbrx-132b train step": train["launches"]["fdp_gemm"]},
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
@@ -543,8 +903,9 @@ def main() -> None:
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",
         "replaces": "src/repro/kernels/fdp_gemm.py:282",
-        "launches": dbrx["launches"]["fdp_ragged_gemm"],
-        "launches_by_path": {"dbrx-132b serve": dbrx["launches"]["fdp_ragged_gemm"]},
+        "launches": dbrx["launches"]["fdp_ragged_gemm"] + train["launches"]["fdp_ragged_gemm"],
+        "launches_by_path": {"dbrx-132b serve": dbrx["launches"]["fdp_ragged_gemm"],
+                             "dbrx-132b train step": train["launches"]["fdp_ragged_gemm"]},
         "max_abs_err": ragged_err,
         "ms": moe_in["ms"], "plain_ms": moe_in["plain_ms"], "bound_ms": moe_in["bound_ms"],
         "bound_by": moe_in["bound_by"], "library_ms": None,
@@ -553,6 +914,19 @@ def main() -> None:
         "sites": ragged_sites,
         "dbrx_serve": {k: v for k, v in dbrx.items() if k != "trace"},
         "dbrx_serve_trace": dbrx["trace"], "dbrx_1layer_pallas_vs_simulate": dbrx_eq,
+    }, {
+        "name": "fdp_ragged_dw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fdp_ragged_dw.cu",
+        "replaces": "src/repro/kernels/fdp_gemm.py:363",
+        "launches": train["launches"]["fdp_ragged_dw"],
+        "launches_by_path": {"dbrx-132b train step": train["launches"]["fdp_ragged_dw"]},
+        "max_abs_err": dw_err,
+        "ms": dw_in["ms"], "plain_ms": dw_in["plain_ms"], "bound_ms": dw_in["bound_ms"],
+        "bound_by": dw_in["bound_by"], "library_ms": None,
+        "at": f"dbrx-132b moe_in@bwd.dB {tuple(dw_in['shape'])} groups {dw_in['groups']} "
+              f"fp32 {P91.describe()}; plain_ms on {dw_in['plain_at']}",
+        "sites": dw_sites,
+        "dbrx_train": train, "dbrx_1layer_grads_pallas_vs_simulate": grads_eq,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

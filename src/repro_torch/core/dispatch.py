@@ -1,5 +1,5 @@
 """BLAS-style transparent dispatch (counterpart of ``repro.core.dispatch``,
-forward serving subset).
+single device).
 
 Model code never calls ``torch.matmul`` directly; it calls
 ``gemm(a, b, site="attn_q")``. A ``NumericsPolicy`` installed with
@@ -11,12 +11,20 @@ Modes (the reference's strings):
                summed in f32 (``preferred_element_type=f32`` in the
                reference), f32 result.
     simulate - bit-exact <ovf,msb,lsb> FDP in plain PyTorch (core.fdp).
-    pallas   - the FDP GEMM kernel: the hand-written CUDA kernel on a CUDA
-               tensor, its plain version on a CPU tensor.
+    pallas   - the FDP GEMM kernels: the hand-written CUDA kernels on CUDA
+               tensors, their plain versions on CPU tensors.
 
-``ragged_gemm`` is the grouped (expert) GEMM of the MoE block, forward
-only. Backward sites (``@bwd.dA``/``@bwd.dB`` through autograd),
-``reduce_axis``, plan autotuning and trace hooks come with later slices.
+Every entry point (``gemm``, ``grouped_qk``, ``grouped_av``, ``ragged_gemm``)
+is a ``torch.autograd.Function``: differentiating through it dispatches the
+two backward GEMMs of the site as sites of their own, ``<site>@bwd.dA`` and
+``<site>@bwd.dB``, each looked up under its own config. The policy is the
+one captured at the forward call and kept in the autograd context, never
+the ambient one at backward time: for CUDA tensors torch runs ``backward``
+on its own device thread, where the thread-local policy of ``use_policy``
+is not installed.
+
+``reduce_axis`` (sharded contractions), plan autotuning and trace hooks come
+with later slices.
 """
 
 from __future__ import annotations
@@ -73,6 +81,9 @@ class GemmSite:
             return self.name
         return (f"{self.name}@{self.phase}.{self.operand}"
                 if self.operand else f"{self.name}@{self.phase}")
+
+    def bwd(self, operand: str) -> "GemmSite":
+        return GemmSite(self.name, "bwd", operand)
 
     @classmethod
     def parse(cls, site: Union[str, "GemmSite"]) -> "GemmSite":
@@ -198,6 +209,23 @@ def use_policy(policy: NumericsPolicy):
             del _state.policy
         else:
             _state.policy = prev
+
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` of ``fn(*args)`` whose recompute runs under
+    the policy current here. The recompute happens during backward, on
+    autograd's device thread for CUDA tensors, where ``use_policy`` of the
+    caller's thread is not installed: without this, a recomputed site would
+    dispatch under the default policy and its gradient would no longer
+    match its forward."""
+    from torch.utils.checkpoint import checkpoint as _checkpoint
+    pol = current_policy()
+
+    def run(*a):
+        with use_policy(pol):
+            return fn(*a)
+
+    return _checkpoint(run, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -347,49 +375,176 @@ def _batched_apply(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return matmul_batching(f, f3d)(a, b)
 
 
+def _unbroadcast(x: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a cotangent down to a (numpy-broadcast) primal operand shape."""
+    shape = tuple(shape)
+    if tuple(x.shape) == shape:
+        return x
+    extra = x.ndim - len(shape)
+    if extra:
+        x = x.sum(dim=tuple(range(extra)))
+    axes = tuple(i for i, (xs, ps) in enumerate(zip(x.shape, shape))
+                 if ps == 1 and xs != 1)
+    if axes:
+        x = x.sum(dim=axes, keepdim=True)
+    return x
+
+
+class _Gemm(torch.autograd.Function):
+    """``gemm`` with its two backward GEMMs dispatched as sites
+    (``_gemm_vjp_bwd`` of the reference)."""
+
+    @staticmethod
+    def forward(ctx, a, b, site: GemmSite, pol: NumericsPolicy, plan):
+        ctx.site, ctx.pol = site, pol
+        ctx.save_for_backward(a, b)
+        return _dispatch(site, pol.lookup(site), a, b, plan=plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        site, pol = ctx.site, ctx.pol
+        # torch.matmul 1-D promotion: lift to 2-D, compute, drop the unit
+        # dims. The N axis goes in before the M axis so the vector-dot case,
+        # where g is 0-d, lifts cleanly to (1, 1).
+        a2 = a[None, :] if a.ndim == 1 else a
+        b2 = b[:, None] if b.ndim == 1 else b
+        g2 = g
+        if b.ndim == 1:
+            g2 = g2[..., None]
+        if a.ndim == 1:
+            g2 = g2[..., None, :]
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da_site = site.bwd("dA")
+            da = _dispatch(da_site, pol.lookup(da_site), g2, b2.transpose(-1, -2))
+            da = _unbroadcast(da, a2.shape).reshape(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db_site = site.bwd("dB")
+            db_cfg = pol.lookup(db_site)
+            if b2.ndim == 2:
+                # weight gradient: one flattened Aᵀ·G GEMM over all leading
+                # dims (the reference's contraction order: batch-major rows)
+                af = a2.reshape(-1, a2.shape[-1])
+                gf = g2.reshape(-1, g2.shape[-1])
+                db = _dispatch(db_site, db_cfg, af.transpose(0, 1), gf)
+            else:
+                db = _dispatch(db_site, db_cfg, a2.transpose(-1, -2), g2)
+                db = _unbroadcast(db, b2.shape)
+            db = db.reshape(b.shape).to(b.dtype)
+        return da, db, None, None, None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, site: Union[str, GemmSite] = "generic",
          policy: Optional[NumericsPolicy] = None,
          plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Policy-dispatched matmul with ``torch.matmul`` semantics; f32 out.
-    ``plan`` is checked as in the reference (pallas mode only) and changes
-    no launch."""
+    Differentiating through it dispatches ``<site>@bwd.dA`` (G·Bᵀ) and
+    ``<site>@bwd.dB`` (Aᵀ·G) under the policy captured here. ``plan`` is
+    checked as in the reference (pallas mode only) and changes no launch."""
     pol = policy or current_policy()
-    s = GemmSite.parse(site)
-    return _dispatch(s, pol.lookup(s), a, b, plan=plan)
+    return _Gemm.apply(a, b, GemmSite.parse(site), pol, plan)
 
 
 # -- grouped attention einsums ----------------------------------------------
+def _grouped_qk_execute(site: GemmSite, cfg: GemmConfig, q: torch.Tensor,
+                        k: torch.Tensor) -> torch.Tensor:
+    """q (B,Kh,G,Sq,hd) x k (B,Kh,Sk,hd) -> (B,Kh,G,Sq,Sk). FDP modes run
+    one flattened 4-D dispatch."""
+    _note_site(site.key)
+    if cfg.mode == "native":
+        return torch.einsum("bkgqd,bksd->bkgqs", cfg.fmt.quantize(q),
+                            cfg.fmt.quantize(k))
+    B, Kh, G, Sq, hd = q.shape
+    out = _execute(cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2))
+    return out.reshape(B, Kh, G, Sq, k.shape[2])
+
+
+def _grouped_av_execute(site: GemmSite, cfg: GemmConfig, p: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """p (B,Kh,G,Sq,Sk) x v (B,Kh,Sk,hd) -> (B,Kh,G,Sq,hd)."""
+    _note_site(site.key)
+    if cfg.mode == "native":
+        return torch.einsum("bkgqs,bksd->bkgqd", cfg.fmt.quantize(p),
+                            cfg.fmt.quantize(v))
+    B, Kh, G, Sq, Sk = p.shape
+    out = _execute(cfg, p.reshape(B, Kh, G * Sq, Sk), v)
+    return out.reshape(B, Kh, G, Sq, v.shape[-1])
+
+
+def _grouped_dright(site: GemmSite, cfg: GemmConfig, lhs: torch.Tensor,
+                    rhs: torch.Tensor) -> torch.Tensor:
+    """The shared dK/dV backward contraction ``bkgqx,bkgqy->bkxy`` (sum over
+    heads-in-group and query positions): dK = dright(g, q), dV = dright(p,
+    g)."""
+    _note_site(site.key)
+    if cfg.mode == "native":
+        return torch.einsum("bkgqx,bkgqy->bkxy", cfg.fmt.quantize(lhs),
+                            cfg.fmt.quantize(rhs))
+    B, Kh, G, Sq, X = lhs.shape
+    lf = lhs.reshape(B, Kh, G * Sq, X).transpose(-1, -2)
+    rf = rhs.reshape(B, Kh, G * Sq, -1)
+    return _execute(cfg, lf, rf)
+
+
+class _GroupedQK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, site: GemmSite, pol: NumericsPolicy):
+        ctx.site, ctx.pol = site, pol
+        ctx.save_for_backward(q, k)
+        return _grouped_qk_execute(site, pol.lookup(site), q, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        dq_site, dk_site = ctx.site.bwd("dA"), ctx.site.bwd("dB")
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            # dQ = einsum("bkgqs,bksd->bkgqd", g, k): the grouped_av contraction
+            dq = _grouped_av_execute(dq_site, ctx.pol.lookup(dq_site), g, k).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            # dK = einsum("bkgqs,bkgqd->bksd", g, q)
+            dk = _grouped_dright(dk_site, ctx.pol.lookup(dk_site), g, q).to(k.dtype)
+        return dq, dk, None, None
+
+
+class _GroupedAV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, v, site: GemmSite, pol: NumericsPolicy):
+        ctx.site, ctx.pol = site, pol
+        ctx.save_for_backward(p, v)
+        return _grouped_av_execute(site, pol.lookup(site), p, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        dp_site, dv_site = ctx.site.bwd("dA"), ctx.site.bwd("dB")
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            # dP = einsum("bkgqd,bksd->bkgqs", g, v): the grouped_qk contraction
+            dp = _grouped_qk_execute(dp_site, ctx.pol.lookup(dp_site), g, v).to(p.dtype)
+        if ctx.needs_input_grad[1]:
+            # dV = einsum("bkgqs,bkgqd->bksd", p, g)
+            dv = _grouped_dright(dv_site, ctx.pol.lookup(dv_site), p, g).to(v.dtype)
+        return dp, dv, None, None
+
+
 def grouped_qk(q: torch.Tensor, k: torch.Tensor, *,
                site: Union[str, GemmSite] = "attn_qk",
                policy: Optional[NumericsPolicy] = None) -> torch.Tensor:
     """GQA score einsum q (B,Kh,G,Sq,hd) x k (B,Kh,Sk,hd) -> (B,Kh,G,Sq,Sk).
-    FDP modes run one flattened 4-D dispatch."""
+    Backward dispatches ``<site>@bwd.dA`` (dQ) / ``<site>@bwd.dB`` (dK)."""
     pol = policy or current_policy()
-    s = GemmSite.parse(site)
-    cfg = pol.lookup(s)
-    if cfg.mode == "native":
-        _note_site(s.key)
-        return torch.einsum("bkgqd,bksd->bkgqs", cfg.fmt.quantize(q),
-                            cfg.fmt.quantize(k))
-    B, Kh, G, Sq, hd = q.shape
-    out = _dispatch(s, cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2))
-    return out.reshape(B, Kh, G, Sq, k.shape[2])
+    return _GroupedQK.apply(q, k, GemmSite.parse(site), pol)
 
 
 def grouped_av(p: torch.Tensor, v: torch.Tensor, *,
                site: Union[str, GemmSite] = "attn_av",
                policy: Optional[NumericsPolicy] = None) -> torch.Tensor:
-    """GQA value einsum p (B,Kh,G,Sq,Sk) x v (B,Kh,Sk,hd) -> (B,Kh,G,Sq,hd)."""
+    """GQA value einsum p (B,Kh,G,Sq,Sk) x v (B,Kh,Sk,hd) -> (B,Kh,G,Sq,hd).
+    Backward dispatches ``<site>@bwd.dA`` (dP) / ``<site>@bwd.dB`` (dV)."""
     pol = policy or current_policy()
-    s = GemmSite.parse(site)
-    cfg = pol.lookup(s)
-    if cfg.mode == "native":
-        _note_site(s.key)
-        return torch.einsum("bkgqs,bksd->bkgqd", cfg.fmt.quantize(p),
-                            cfg.fmt.quantize(v))
-    B, Kh, G, Sq, Sk = p.shape
-    out = _dispatch(s, cfg, p.reshape(B, Kh, G * Sq, Sk), v)
-    return out.reshape(B, Kh, G, Sq, v.shape[-1])
+    return _GroupedAV.apply(p, v, GemmSite.parse(site), pol)
 
 
 # -- grouped (expert) GEMM --------------------------------------------------
@@ -441,14 +596,69 @@ def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
     return kops.fdp_ragged_gemm(x, w, group_sizes, spec=cfg.acc, fmt=cfg.fmt)
 
 
+def _ragged_dw(site: GemmSite, cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor,
+               group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``ragged_gemm``, ``dW[e] = X_eᵀ · G_e`` (E, d,
+    f), under one resolved config.
+
+    native   - every expert's masked Aᵀ·G over all T rows (the reference's
+               T x E path), selected by segment id on the device.
+    simulate - ``core.fdp.fdp_ragged_dw``: one FDP GEMM per group on its
+               rows (the same bits as the masked pass).
+    pallas   - the sorted-segment weight-gradient kernel (its plain version
+               on the CPU)."""
+    _note_site(site.key)
+    E = group_sizes.shape[0]
+    if cfg.mode == "native":
+        if not isinstance(cfg.fmt, FloatFormat):
+            raise ValueError(f"native mode needs a float format, not {cfg.fmt.name}")
+        seg = _segment_ids(group_sizes, x.shape[0])
+        masks = seg[None, :] == torch.arange(E, device=x.device)[:, None]   # (E, T)
+        xm = torch.where(masks[:, :, None], cfg.fmt.quantize(x), 0.0)      # (E, T, d)
+        return torch.matmul(xm.transpose(-1, -2), cfg.fmt.quantize(g))
+    if isinstance(cfg.fmt, FloatFormat):
+        x, g = cfg.fmt.quantize(x), cfg.fmt.quantize(g)
+    if cfg.mode == "simulate":
+        from . import fdp
+        return fdp.fdp_ragged_dw(x, g, group_sizes, cfg.acc, cfg.fmt)
+    from repro_torch.kernels import ops as kops
+    return kops.fdp_ragged_dw(x, g, group_sizes, num_groups=E, spec=cfg.acc,
+                              fmt=cfg.fmt)
+
+
+class _Ragged(torch.autograd.Function):
+    """``ragged_gemm`` with its backward sites (``_ragged_vjp_bwd`` of the
+    reference): dX is the same ragged contraction against the transposed
+    per-expert weights, dW the sorted-segment weight gradient; the integer
+    group sizes get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, site: GemmSite, pol: NumericsPolicy):
+        ctx.site, ctx.pol = site, pol
+        ctx.save_for_backward(x, w, group_sizes)
+        return _ragged_execute(site, pol.lookup(site), x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, group_sizes = ctx.saved_tensors
+        dx_site, dw_site = ctx.site.bwd("dA"), ctx.site.bwd("dB")
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _ragged_execute(dx_site, ctx.pol.lookup(dx_site), g,
+                                 w.transpose(-1, -2), group_sizes).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _ragged_dw(dw_site, ctx.pol.lookup(dw_site), x, g,
+                            group_sizes).to(w.dtype)
+        return dx, dw, None, None, None
+
+
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
                 site: Union[str, GemmSite] = "moe_expert",
                 policy: Optional[NumericsPolicy] = None) -> torch.Tensor:
     """Grouped (expert) GEMM: ``x (T, d)`` rows sorted by group, ``w (E, d,
     f)`` per-group weights, ``group_sizes (E,)`` rows per group. Output ``(T,
     f)`` f32: row t contracts against its group's weight matrix, rows beyond
-    ``sum(group_sizes)`` are 0.0. Forward only (the backward sites come with
-    training)."""
+    ``sum(group_sizes)`` are 0.0. Backward dispatches ``<site>@bwd.dA`` (dX)
+    and ``<site>@bwd.dB`` (dW)."""
     pol = policy or current_policy()
-    s = GemmSite.parse(site)
-    return _ragged_execute(s, pol.lookup(s), x, w, group_sizes)
+    return _Ragged.apply(x, w, group_sizes, GemmSite.parse(site), pol)

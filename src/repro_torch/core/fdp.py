@@ -20,6 +20,12 @@ from .formats import FP32, FloatFormat, PositFormat
 # this many elements. The chunking only changes when carries normalize,
 # which does not change the bits.
 _CHUNK_PRODUCTS = 1 << 21
+# Outputs per column block of ``fdp_gemm``: the (M, N, L) register of a
+# wide output (a weight gradient of 6144 x 100352, or one expert's 6144 x
+# 10752) is formed and read out a block of columns at a time, so its limbs
+# and read-out temporaries stay near this many outputs. Each output column
+# is independent, so the blocking does not change the bits.
+_BLOCK_OUTPUTS = 1 << 22
 
 
 def check_format(fmt) -> None:
@@ -80,7 +86,12 @@ def fdp_gemm_limbs(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
 def fdp_gemm(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
              fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
     """GEMM with FDP accumulation: (M,K) @ (K,N) -> (M,N) f32."""
-    return acc.to_float(spec, fdp_gemm_limbs(a, b, spec, fmt))
+    M, N = a.shape[0], b.shape[-1]
+    nb = max(1, _BLOCK_OUTPUTS // max(1, M))
+    if N <= nb:
+        return acc.to_float(spec, fdp_gemm_limbs(a, b, spec, fmt))
+    return torch.cat([acc.to_float(spec, fdp_gemm_limbs(a, b[:, n0:n0 + nb], spec, fmt))
+                      for n0 in range(0, N, nb)], dim=1)
 
 
 def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
@@ -101,5 +112,28 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         stop = min(T, start + n)
         if stop > start:
             out[start:stop] = fdp_gemm(x[start:stop], w[e], spec, fmt)
+        start = stop
+    return out
+
+
+def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
+                  spec: AccumulatorSpec,
+                  fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
+    """Grouped weight gradient with FDP accumulation: ``x (T, d)`` and ``g
+    (T, f)`` rows sorted by group, ``group_sizes (E,)`` -> ``dW (E, d, f)``
+    f32, ``dW[e] = x[rows of e]ᵀ @ g[rows of e]``. One ``fdp_gemm`` per
+    non-empty group on its rows; a zero-size group gets exact zeros and rows
+    past ``sum(group_sizes)`` add nothing. The reference's ``simulate`` mode
+    runs every group over all T rows with the other groups' rows zeroed;
+    zero products add nothing to the limb register, so the bits are the
+    same. Reads the group sizes on the host."""
+    T, d, f = x.shape[0], x.shape[1], g.shape[1]
+    out = torch.zeros((group_sizes.shape[0], d, f), dtype=torch.float32,
+                      device=x.device)
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        stop = min(T, start + n)
+        if stop > start:
+            out[e] = fdp_gemm(x[start:stop].T, g[start:stop], spec, fmt)
         start = stop
     return out

@@ -15,23 +15,31 @@ body ``fdp_ragged_kernel`` (through ``fdp_ragged_gemm_pallas``). Each block
 of the kernel finds its row's group from the group sizes on the device, so
 no tile table is built and the host never reads the sizes.
 
-What bounds both on the card: int32 CUDA-core operations per exact product
+``fdp_ragged_dw(x, g, group_sizes, spec=..., fmt=...)`` is the
+sorted-segment MoE weight gradient: ``x (T, d)``, ``g (T, f)`` rows sorted by
+group -> ``dW (E, d, f)`` f32, ``dW[e] = x[rows of e]ᵀ @ g[rows of e]``, exact
+zeros for a zero-size group. It replaces the Pallas body
+``fdp_ragged_dw_kernel`` (through ``fdp_ragged_dw_pallas``); each thread
+finds its group's row window from the group sizes on the device.
+
+What bounds all three on the card: int32 CUDA-core operations per exact product
 (form the 48-bit significand product, align it to the grid, add four
 16-bit pieces into the limbs), not bytes and not the tensor cores, which
 have no exact wide-integer accumulate. The simple design (``csrc/``; the
-device math is ``csrc/fdp_common.cuh``, shared by both kernels) keeps each
+device math is ``csrc/fdp_common.cuh``, shared by all three kernels) keeps each
 output's limbs in registers, so the placement is compare-and-select over a
-compile-time number of limbs with no local-memory traffic, and splits K
-over eight threads per output, whose registers are summed exactly in shared
-memory, so that decode shapes (M = 1, or 16 expert rows) still fill the
-card. It spends more operations than the function needs: both operands are
+compile-time number of limbs with no local-memory traffic. The two forward
+kernels split K over eight threads per output, whose registers are summed
+exactly in shared memory, so that decode shapes (M = 1, or 16 expert rows)
+still fill the card; the weight-gradient kernel, whose K is a group's few
+rows and whose outputs number E*d*f, gives each output one thread. It spends more operations than the function needs: both operands are
 decoded per product and every limb is selected per product. ``int32_ops``
 counts what the function needs, whatever the design; ``chip_smoke.py``
 turns that count into the bound it reports.
 
 On CPU tensors the wrappers run the plain PyTorch versions
-(``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``: the port's ``simulate``
-mode); on CUDA tensors they launch the kernel or raise. Each source in
+(``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``, ``fdp_ragged_dw_plain``: the
+port's ``simulate`` mode); on CUDA tensors they launch the kernel or raise. Each source in
 ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` at first use, all at
 once, into a shared library in ``_build/`` beside this file (git ignores
 it), and bound through ctypes.
@@ -44,6 +52,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -67,7 +76,14 @@ _ENTRIES = {
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                         + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 8
                         + [ctypes.c_void_p]),
+    "fdp_ragged_dw": ("fdp_ragged_dw_launch",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                      + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+                      + [ctypes.c_void_p]),
 }
+# The launch counters are read-modify-written from the caller's thread and,
+# for a backward, from autograd's device thread.
+_COUNT_LOCK = threading.Lock()
 
 _libs = None
 
@@ -174,6 +190,11 @@ def _numerics_args(spec: AccumulatorSpec, fmt) -> tuple:
             fmt.nbits if posit else 32, fmt.es if posit else 0)
 
 
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _check_device(*tensors: torch.Tensor) -> str:
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -227,7 +248,7 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
             *a.stride(), *b.stride(), *numerics, stream)
     if err != 0:
         raise RuntimeError(f"fdp_gemm kernel launch failed: cudaError {err}")
-    fdp_gemm.launches += 1
+    _count(fdp_gemm)
     return out
 
 
@@ -282,8 +303,63 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
             *x.stride(), *w.stride(), *numerics, stream)
     if err != 0:
         raise RuntimeError(f"fdp_ragged_gemm kernel launch failed: cudaError {err}")
-    fdp_ragged_gemm.launches += 1
+    _count(fdp_ragged_gemm)
     return out
 
 
 fdp_ragged_gemm.launches = 0
+
+
+def fdp_ragged_dw_plain(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
+                        *, spec: AccumulatorSpec, fmt) -> torch.Tensor:
+    """The sorted-segment weight-gradient kernel's plain PyTorch version:
+    ``core.fdp.fdp_ragged_dw`` (one ``fdp_gemm`` per group on its rows,
+    exact zeros for a zero-size group)."""
+    return core_fdp.fdp_ragged_dw(x, g, group_sizes, spec, fmt)
+
+
+def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor, *,
+                  spec: AccumulatorSpec, fmt) -> torch.Tensor:
+    """Sorted-segment grouped weight gradient: ``x (T, d)`` and ``g (T, f)``
+    rows sorted by group, ``group_sizes (E,)`` non-negative rows per group ->
+    ``dW (E, d, f)`` f32 with ``dW[e] = x[rows of e]ᵀ @ g[rows of e]`` through
+    the exact FDP datapath. A zero-size group gets exact zeros; rows past
+    ``sum(group_sizes)`` add nothing.
+
+    ``x`` and ``g`` may have any strides. On CUDA tensors the kernel reads
+    ``group_sizes`` on the device and the launch is counted in
+    ``fdp_ragged_dw.launches``; CPU tensors run ``fdp_ragged_dw_plain``."""
+    if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0] \
+            or group_sizes.ndim != 1:
+        raise ValueError(f"fdp_ragged_dw expects x (T,d), g (T,f), group_sizes (E,), "
+                         f"got {tuple(x.shape)}, {tuple(g.shape)}, "
+                         f"{tuple(group_sizes.shape)}")
+    if group_sizes.dtype.is_floating_point or group_sizes.dtype.is_complex:
+        raise TypeError(f"group_sizes must be integers, not {group_sizes.dtype}")
+    on = _check_device(x, g, group_sizes)
+    x, g = _carriers(fmt, x, g)
+    if on == "cpu":
+        return fdp_ragged_dw_plain(x, g, group_sizes, spec=spec, fmt=fmt)
+    numerics = _numerics_args(spec, fmt)
+    T, d = x.shape
+    f = g.shape[1]
+    E = group_sizes.shape[0]
+    if -(-d // 8) > 65535 or E > 65535:
+        raise ValueError(f"{d} rows or {E} groups exceed the kernel grid (65535)")
+    out = torch.empty((E, d, f), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    gs = group_sizes.to(torch.int32).contiguous()
+    lib = load()["fdp_ragged_dw"]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fdp_ragged_dw_launch(
+            x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), T, E, d, f,
+            *x.stride(), *g.stride(), *numerics, stream)
+    if err != 0:
+        raise RuntimeError(f"fdp_ragged_dw kernel launch failed: cudaError {err}")
+    _count(fdp_ragged_dw)
+    return out
+
+
+fdp_ragged_dw.launches = 0

@@ -1,5 +1,6 @@
 """Public wrappers around the FDP kernels (counterpart of
-``repro.kernels.ops``: 2-D, batched and sorted-segment entry points).
+``repro.kernels.ops``: 2-D, batched and sorted-segment entry points, the
+last both forward and weight gradient).
 
 Every entry point takes ``plan: GemmPlan | None`` as the reference's
 GemmPlan-first API does, and a given plan is checked through
@@ -58,6 +59,21 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     if plan is not None:
         resolve_plan(plan, x.shape[0], w.shape[2], x.shape[1])
     return _k.fdp_ragged_gemm(x, w, group_sizes, spec=spec, fmt=fmt)
+
+
+def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor, *,
+                  num_groups: int, spec: AccumulatorSpec, fmt=FP32,
+                  plan: GemmPlan | None = None) -> torch.Tensor:
+    """Sorted-segment grouped weight gradient: ``dW[e] = X_eᵀ · G_e`` for ``x
+    (T, d)`` / ``g (T, f)`` rows sorted by group -> ``(E, d, f)`` f32, in one
+    launch of the weight-gradient kernel. Zero-size groups (leading,
+    inner or trailing) get exact zeros. ``plan`` is checked against the
+    (d, f, T) problem, as in the reference."""
+    if tuple(group_sizes.shape) != (num_groups,):
+        raise ValueError(f"group_sizes {tuple(group_sizes.shape)} != ({num_groups},)")
+    if plan is not None:
+        resolve_plan(plan, x.shape[1], g.shape[1], x.shape[0])
+    return _k.fdp_ragged_dw(x, g, group_sizes, spec=spec, fmt=fmt)
 
 
 def matmul_batching(f2d, f3d):

@@ -39,7 +39,7 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
     return t.device.type == dev.type and (dev.index is None or t.device.index == dev.index)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def serve(cfg, params, prompts, gen_len: int, device=None) -> torch.Tensor:
     """prompts: (B, S) int. Greedy decode gen_len tokens. Returns (B, gen)
     int64 on ``device`` (CUDA unless the caller asks for another)."""

@@ -19,9 +19,9 @@ from repro_torch.core import dispatch
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # Serving only: no autograd graph is built. Training (ROADMAP queue 1
-    # item 8) turns gradients on with the autograd backward sites.
-    return nn.Parameter(t, requires_grad=False)
+    # Trainable: the dispatch sites carry gradients through their backward
+    # GEMMs. Serving runs under torch.inference_mode() and builds no graph.
+    return nn.Parameter(t, requires_grad=True)
 
 
 def _normal(shape, scale, gen, dtype, device) -> nn.Parameter:

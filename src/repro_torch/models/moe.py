@@ -8,7 +8,12 @@ computed, so the expert GEMMs do T*k rows of work. The whole block stays on
 the device: no host sync (group sizes by ``scatter_add_``, not
 ``bincount``, which reads the max on the host), and a combine that sums
 each token's k contributions in a fixed order instead of an atomic
-``index_add_``, so the bits repeat from run to run.
+``index_add_``, so the bits repeat from run to run. The backward repeats
+too: every index op here is a permutation (unique indices, so its
+scatter-add backward adds each value into zero once), and each token's k
+row gradients are summed by a reduction over a dimension, not by atomics.
+The routing gates carry the gradient to ``router``; the sort order and the
+group sizes are integers and carry none.
 
 The mesh branches (TP-MoE inside ``shard_map``) and ``moe_block_ep`` come
 with multi-device support.
@@ -69,8 +74,10 @@ def _moe_inner(x_flat, router_w, wi, wg, wo, cfg) -> torch.Tensor:
     weights, ids = _route(x_flat, router_w, cfg)
     flat_ids = ids.reshape(-1)                               # (T*k,)
     order = torch.argsort(flat_ids, stable=True)
-    token_of = order // k                                    # source token per row
-    x_sorted = x_flat[token_of]
+    # x_flat[order // k], written as a permutation of the k-fold repeat so
+    # that the backward sums each token's k rows in a fixed order
+    x_rep = x_flat[:, None, :].expand(T, k, d).reshape(T * k, d)
+    x_sorted = x_rep[order]
     group_sizes = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x_flat.device)
     group_sizes.scatter_add_(0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int32))
     out_sorted = _moe_ffn(x_sorted, group_sizes, cfg, wi, wg, wo)

@@ -2,14 +2,20 @@
 MoE families on one device:
 
     params = init(cfg, seed, device)               # a Transformer module
-    logits = forward(params, cfg, batch)           # prefill logits
+    logits = forward(params, cfg, batch)           # train / prefill logits
     cache  = init_cache(cfg, B, max_len)           # serving
     logits, cache = decode_step(params, cfg, cache, tokens)
 
 Parameters map one-to-one onto the reference's tree: its ``layers.*``
 leaves carry a leading layer axis, here ``layers[i].*`` is one module per
-layer (``models.convert`` unstacks). Layers run as a Python loop; there is
-no ``scan`` or remat to port for serving.
+layer (``models.convert`` unstacks and restacks). Layers run as a Python
+loop in place of the reference's ``scan``; ``remat`` checkpoints each block
+(``dispatch.checkpoint``, whose recompute re-enters the forward's policy).
+
+Every GEMM site here is a forward site name; differentiating ``forward``
+dispatches the matching ``<site>@bwd.dA``/``<site>@bwd.dB`` sites through
+the dispatch layer's autograd functions. Serving (``prefill``,
+``decode_step``) runs under ``torch.inference_mode()`` and builds no graph.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core import dispatch
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -100,12 +107,26 @@ def _logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward (prefill): full-sequence logits
 # ---------------------------------------------------------------------------
-def forward(params: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B, S)}. Returns logits (B, S, padded_vocab) f32."""
+def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            remat: str = "block", return_hidden: bool = False) -> torch.Tensor:
+    """batch: {"tokens": (B, S)}. Returns logits (B, S, padded_vocab) f32, or
+    the final-norm hidden states (B, S, d) when ``return_hidden`` (the
+    chunked loss computes the head itself). ``remat`` "block" or "full"
+    checkpoints every block while gradients are recorded (the recompute
+    gives the same bits); "none" keeps every activation."""
+    if remat not in ("none", "block", "full"):
+        raise ValueError(f"remat {remat!r} (expected none, block or full)")
     x = _embed(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(h, blk):
+        return _decoder_block(h, blk, cfg, positions=positions)[0]
+
+    use_remat = remat != "none" and torch.is_grad_enabled()
     for blk in params.layers:
-        x, _ = _decoder_block(x, blk, cfg, positions=positions)
+        x = dispatch.checkpoint(body, x, blk) if use_remat else body(x, blk)
+    if return_hidden:
+        return L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, x)
 
 
@@ -125,6 +146,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                        "v": torch.zeros(shape, dtype=dtype, device=dev)}}
 
 
+@torch.inference_mode()
 def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor):
     """One incremental decode step. tokens: (B, 1) int.
@@ -140,6 +162,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
     return _logits(params, cfg, x), {"len": ln + 1, "layers": kv_layers}
 
 
+@torch.inference_mode()
 def prefill(params: Transformer, cfg: ModelConfig, batch: dict, cache: dict):
     """Fill the cache from a prompt by running decode_step over positions.
     Returns (last logits (B, V), cache)."""

@@ -18,7 +18,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import dispatch as TD  # noqa: E402
 from repro_torch.kernels import fdp_gemm as tk  # noqa: E402
 from repro_torch.launch import serve as TS  # noqa: E402
+from repro_torch.launch import train as TLT  # noqa: E402
 from repro_torch.models import init, transformer as TT  # noqa: E402
+from repro_torch.train.loop import Trainer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -44,7 +46,10 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
             "repro_torch.models, repro_torch.models.moe, repro_torch.launch.serve, "
-            "repro_torch.configs\n"
+            "repro_torch.configs, repro_torch.core.qformat, repro_torch.train, "
+            "repro_torch.train.optimizer, repro_torch.train.loop, "
+            "repro_torch.checkpoint.store, repro_torch.data.synthetic, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -64,6 +69,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         init(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TT.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TLT.main(["--arch", "paper-mlp", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, None, None, None, "unused")
 
 
 def test_serve_refuses_params_on_another_device():

@@ -94,3 +94,86 @@ def test_ragged_kernel_bit_equal_to_plain_on_card():
     torch.cuda.synchronize()
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
     assert tk.fdp_ragged_gemm.launches == launches + 6
+
+
+@pytest.mark.cuda
+def test_ragged_dw_kernel_bit_equal_to_plain_on_card():
+    """The sorted-segment weight-gradient kernel against its plain version:
+    zero-size groups leading, inner and trailing, every group empty, rows
+    past the total, strided (transposed) operands, a group longer than
+    SAFE_CHUNK rows, and every format."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(2)
+    cases = [(50, 13, 40, [0, 9, 0, 14, 7, 0], "ieee_fp32", "paper_91bit"),
+             (24, 33, 9, [0, 0, 24], "bfloat16", "rne"),
+             (16, 20, 40, [5, 0, 11, 0], "posit16_1", "saturate"),
+             (8, 6, 8, [0, 0, 0], "ieee_fp32", "paper_91bit"),
+             (tacc.SAFE_CHUNK + 517, 3, 33, [0, tacc.SAFE_CHUNK + 500], "ieee_fp32",
+              "paper_91bit")]
+    for T, d, f, gs, fmt_name, spec_name in cases:
+        tf = tfmt.get_format(fmt_name)
+        ts = tacc.AccumulatorSpec(**SPEC_ARGS[spec_name])
+        x, go = torch.randn(d, T, generator=g), torch.randn(T, 2 * f, generator=g)
+        if T > tacc.SAFE_CHUNK:
+            x, go = x.abs(), go.abs()                    # limbs grow: carries must normalize
+        if isinstance(tf, tfmt.PositFormat):
+            x, go = tf.from_float(x), tf.from_float(go)
+        x, go = x.cuda().T, go.cuda()[:, ::2]            # strided views
+        sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+        want = tk.fdp_ragged_dw_plain(x, go, sizes, spec=ts, fmt=tf)
+        got = tk.fdp_ragged_dw(x, go, sizes, spec=ts, fmt=tf)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), (T, d, f, gs, fmt_name, spec_name)
+        for e, n in enumerate(gs):
+            assert n or not got[e].any()
+
+
+@pytest.mark.cuda
+def test_backward_on_the_card_uses_the_forward_policy():
+    """A loss and backward of the reduced MoE model whose forward ran under
+    the FDP kernel policy: every backward site launches a kernel although
+    torch runs the backward on its device thread, where use_policy is not
+    installed; the MoE block's backward reads nothing on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch as TD
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import init, moe as TM
+    from repro_torch.train.loop import make_loss_fn
+
+    cfg = get_config("dbrx-132b").reduced()
+    params = init(cfg, seed=0, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8), device="cuda"),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 8), device="cuda")}
+    loss_fn = make_loss_fn(cfg, remat="block")
+    counters = (tk.fdp_gemm, tk.fdp_ragged_gemm, tk.fdp_ragged_dw)
+    before = [c.launches for c in counters]
+    TD.reset_sites_seen()
+    with TD.use_policy(FDP91_KERNEL):
+        loss, _ = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    calls = TD.site_calls()
+    TD.reset_sites_seen()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    ragged = {s for s in calls if s.split("@")[0] in ("moe_in", "moe_gate", "moe_out")}
+    assert launched[2] == sum(calls[s] for s in ragged if s.endswith("@bwd.dB")) > 0
+    assert launched[1] == sum(calls[s] for s in ragged if not s.endswith("@bwd.dB")) > 0
+    assert launched[0] == sum(n for s, n in calls.items() if s not in ragged) > 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+    x = torch.randn(2, 3, cfg.d_model, device="cuda", requires_grad=True)
+    block = params.layers[0].moe
+    with TD.use_policy(FDP91_KERNEL):
+        out = TM.moe_block(x, block, cfg)
+    gout = torch.randn_like(out)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gx, = torch.autograd.grad(out, x, gout)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert gx.shape == x.shape and bool(torch.isfinite(gx).all())

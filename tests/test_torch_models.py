@@ -58,7 +58,7 @@ def test_params_map_one_to_one(model):
     n_jax = sum(np.asarray(x).size for x in jax.tree.leaves(jp))
     assert sum(p.numel() for p in tp.parameters()) == n_jax
     np.testing.assert_array_equal(np.asarray(jp["layers"]["attn"]["wq"][1]),
-                                  tp.layers[1].attn.wq.numpy())
+                                  tp.layers[1].attn.wq.detach().numpy())
 
 
 @pytest.mark.parametrize("policy", list(POLICIES))
@@ -71,7 +71,7 @@ def test_forward_logits(model, policy):
     with TD.use_policy(tpol):
         got = TT.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
     assert got.shape == want.shape == (2, 7, tc.padded_vocab)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_prefill_and_decode_step(model):
@@ -92,4 +92,4 @@ def test_prefill_and_decode_step(model):
     # prefill's last logits are forward's last position
     with TD.use_policy(TD.MXU_FP32):
         full = TT.forward(tp, tc, {"tokens": torch.from_numpy(toks).long()})
-    np.testing.assert_allclose(tlast.numpy(), full[:, -1].numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tlast.numpy(), full[:, -1].detach().numpy(), rtol=RTOL, atol=ATOL)

@@ -59,7 +59,7 @@ def test_moe_block_matches_reference(moe, policy):
         got = TM.moe_block(torch.from_numpy(x), tp, TCFG)
         again = TM.moe_block(torch.from_numpy(x), tp, TCFG)
     assert got.shape == want.shape == x.shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
     assert torch.equal(got, again)
     assert TD.site_calls() == {s: 2 for s in ("moe_router", "moe_in", "moe_gate", "moe_out")}
     TD.reset_sites_seen()
@@ -73,8 +73,8 @@ def test_routing_and_group_sizes_match(moe, monkeypatch):
     with TD.use_policy(FDP91_KERNEL):
         tw, tids = TM._route(torch.from_numpy(xf), tp.router, TCFG)
     np.testing.assert_array_equal(tids.numpy(), jids)
-    np.testing.assert_allclose(tw.numpy(), jw, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(tw.sum(-1).numpy(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(tw.detach().numpy(), jw, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tw.sum(-1).detach().numpy(), 1.0, rtol=1e-6)
     want = np.bincount(jids.reshape(-1), minlength=JCFG.n_experts)
     calls = []
     real = TD.ragged_gemm
@@ -136,6 +136,6 @@ def test_params_from_numpy_carries_the_moe_subtree():
     assert not hasattr(tparams.layers[0], "mlp")
     for name in ("router", "w_in", "w_gate", "w_out"):
         np.testing.assert_array_equal(np.asarray(jparams["layers"]["moe"][name][1]),
-                                      getattr(tparams.layers[1].moe, name).numpy())
+                                      getattr(tparams.layers[1].moe, name).detach().numpy())
     n_jax = sum(np.asarray(v).size for v in jax.tree.leaves(jparams))
     assert sum(p.numel() for p in tparams.parameters()) == n_jax
