@@ -57,12 +57,36 @@ Phases (any failure exits non-zero before the final line):
      in a temporary directory: an injected failure at step 2 is recovered,
      and the final parameters equal those of a run without it, which must
      not restart;
- 12. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 12. the seed-order kernel (``ops.fdp_gemm(impl="loop")``, one thread per
+     output walking k in order, carries normalized every ``plan.bk``
+     products) torch.equal to its plain version and to the vector kernel over
+     formats, rne and saturate, the 91-bit and the paper's <9,6,-20> spec,
+     ragged and strided operands, K past bk and past SAFE_CHUNK, the
+     benchmark's hot shape (256,1024,256) at the seed tile (32,32,128) and
+     qwen3-0.6b's lm_head decode and mlp_in prefill shapes, where it is timed
+     beside the vector kernel; its launch count is set to 0 before the first
+     call and read after the last;
+ 13. the generator: ``generate_gemm`` for the native, simulate and pallas
+     targets (a given tile and plan_gemm's) at the quickstart's shape and at
+     mlp_in's, for both specs; pallas torch.equal simulate; each report's
+     ``describe()`` and the correct bits against an f64 product;
+ 14. qwen3-0.6b at full width served under a PrecisionPlan written to JSON
+     and loaded back (``policy_from_plan``): FDP91 in pallas mode by default,
+     <9,6,-20> at mlp_in/mlp_gate/mlp_out, lm_head native fp32; the dense
+     kernel's launches equal the dispatches at the pallas sites (a trace
+     hook attributes them by site: lm_head none), no backward site, tokens
+     repeat, median of three serves; then at 2 layers the plan's logits
+     torch.equal its simulate twin's, and their top-1 agreement with fp32;
+ 15. the checked-in zoo plan ``examples/plans/qwen3_0p6b.json`` (all native),
+     unchanged, serving qwen3-0.6b at full width once with no FDP launch,
+     and its Adam moments through ``state_quant_from_policy`` (8x64);
+ 16. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The bound of a kernel time is the larger of its bytes (inputs read once,
 output written once) over 3.35 TB/s (H100 SXM HBM3, NVIDIA data sheet) and
 the int32 operations the function needs (``fdp_gemm.int32_ops``: one decode
-per distinct operand element, 20 operations per product; for the
+per distinct operand element, 20 operations per product, for the seed-order
+kernel as for the vector kernel, since they compute one function; for the
 sorted-segment forward kernel, the rows in a group and the weights of the
 non-empty groups; for the weight-gradient kernel, the rows in a group of x
 and of g, and one product per (row in a group, d, f)) over the card's int32
@@ -654,9 +678,9 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # kernels 1 and 3 at the step's backward shapes, the plain version on slices
-    V = tcfg.padded_vocab
-    head = torch.randn(md, V, generator=gen, device=dev) * md ** -0.5
-    g_logits = torch.randn(TRAIN_BATCH, TRAIN_SEQ, V, generator=gen, device=dev) * 1e-3
+    mV = tcfg.padded_vocab
+    head = torch.randn(md, mV, generator=gen, device=dev) * md ** -0.5
+    g_logits = torch.randn(TRAIN_BATCH, TRAIN_SEQ, mV, generator=gen, device=dev) * 1e-3
     h = torch.randn(TRAIN_BATCH, TRAIN_SEQ, md, generator=gen, device=dev)
     w_in = torch.randn(mE, md, mf, generator=gen, device=dev) * md ** -0.5
     g_moe = torch.randn(T_rows, mf, generator=gen, device=dev) * 1e-2
@@ -666,10 +690,10 @@ def main() -> None:
     bwd_checks = {
         # G (B,S,V) @ head^T (V,d) with head^T a transposed view broadcast over B
         "lm_head@bwd.dA, 32 of 6144 columns": lambda f: f(
-            g_logits, head.T[:, :32].expand(TRAIN_BATCH, V, 32)),
+            g_logits, head.T[:, :32].expand(TRAIN_BATCH, mV, 32)),
         # the flattened h^T (d,T) @ G (T,V), a transposed view, 64 of V columns
         "lm_head@bwd.dB, 64 columns": lambda f: f(
-            h.reshape(-1, md).T[None], g_logits.reshape(-1, V)[None, :, :64]),
+            h.reshape(-1, md).T[None], g_logits.reshape(-1, mV)[None, :, :64]),
         "moe_router@bwd.dB (2-D, whole)": lambda f: f(x_tok.T[None], g_router[None]),
     }
     for name, call in bwd_checks.items():
@@ -881,8 +905,267 @@ def main() -> None:
         f"without the failure (0 restarts)")
     del runs
 
+    # -- 12. the seed-order kernel (impl="loop") against plain and vector ------
+    F3 = AccumulatorSpec(ovf=9, msb=6, lsb=-20)          # the paper's Fig.-3 pick
+    SEED_TILE = D.GemmPlan(32, 32, 128)
+
+    def operands_2d(M, Kd, N, fmt, a_scale=1.0, b_scale=1.0, positive=False,
+                    strided=False):
+        if strided:                                      # transposed views of both
+            a = (torch.randn(Kd, M, generator=gen, device=dev) * a_scale).T
+            b = (torch.randn(N, Kd, generator=gen, device=dev) * b_scale).T
+        else:
+            a = torch.randn(M, Kd, generator=gen, device=dev) * a_scale
+            b = torch.randn(Kd, N, generator=gen, device=dev) * b_scale
+        if positive:
+            a, b = a.abs(), b.abs()
+        return on_grid(fmt, a, b)
+
+    LOOP_SHAPES = {"bench hot shape": ((256, 1024, 256), SEED_TILE),
+                   "qwen lm_head decode": ((BATCH, d, V), None),
+                   "qwen mlp_in prefill": ((BATCH * PROMPT, d, f), None)}
+    loop_cases = [
+        ("fp32 91-bit ragged", (5, 70, 9), FP32, P91, SEED_TILE, {}),
+        ("bf16 91-bit ragged", (17, 300, 33), BF16, P91, SEED_TILE, {}),
+        ("posit16_1 91-bit", (4, 64, 40), POSIT16_1, P91, SEED_TILE, {}),
+        ("fp32 rne", (4, 200, 40), FP32, RNE, SEED_TILE, {}),
+        ("fp32 saturate <2,4,-20>", (4, 200, 40), FP32, SAT, SEED_TILE, {"a_scale": 4.0}),
+        ("fp32 <9,6,-20>", (24, 96, 40), FP32, F3, SEED_TILE, {}),
+        ("fp32 strided (transposed) a and b, ragged tiles", (37, 150, 45), FP32, P91,
+         D.GemmPlan(16, 16, 64), {"strided": True}),
+        ("fp32 K = 1000 past bk = 128, so carries normalize 8 times", (40, 1000, 24), FP32,
+         P91, SEED_TILE, {}),
+        (f"fp32 K = SAFE_CHUNK + 700 positive, bk = SAFE_CHUNK", (3, SAFE_CHUNK + 700, 16),
+         FP32, P91, D.GemmPlan(8, 8, 1 << 20), {"positive": True}),
+    ] + [(name, shape, FP32, P91, plan, {"b_scale": shape[1] ** -0.5})
+         for name, (shape, plan) in LOOP_SHAPES.items()]
+    K.fdp_gemm_looped.launches = 0
+    loop_err, loop_sites = 0.0, {}
+    for name, (M, Kd, N), fmt, spec, plan, kw in loop_cases:
+        a, b = operands_2d(M, Kd, N, fmt, **kw)
+        want = K.fdp_gemm_plain(a[None], b[None], spec=spec, fmt=fmt)[0]
+        got = ops.fdp_gemm(a, b, spec=spec, fmt=fmt, plan=plan, impl="loop")
+        vec = ops.fdp_gemm(a, b, spec=spec, fmt=fmt, plan=plan)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            fail(f"seed-order kernel != plain for {name} {(M, Kd, N)}: max |diff| {err}")
+        if not torch.equal(got, vec):
+            fail(f"seed-order kernel != vector kernel for {name} {(M, Kd, N)}")
+        loop_err = max(loop_err, err)
+        fitted = ops.resolve_plan(plan, M, N, Kd)
+        extra = f", {n_saturated(got, spec)} outputs saturated" if spec is SAT else ""
+        log(f"seed-order kernel == plain == vector kernel (torch.equal): {name} "
+            f"{(M, Kd, N)} {fmt.name} {spec.describe()}, plan {fitted.tile}{extra}")
+        if name in LOOP_SHAPES:
+            ops_n = K.int32_ops(M * Kd, Kd * N, M * Kd * N)
+            loop_sites[name] = {
+                "shape": [M, Kd, N], "plan": list(fitted.tile),
+                "ms": cuda_ms(torch, lambda: ops.fdp_gemm(a, b, spec=P91, plan=plan,
+                                                          impl="loop"), reps=10),
+                "vector_ms": cuda_ms(torch, lambda: ops.fdp_gemm(a, b, spec=P91, plan=plan),
+                                     reps=10),
+                "plain_ms": cuda_ms(torch, lambda: K.fdp_gemm_plain(a[None], b[None], spec=P91,
+                                                                    fmt=FP32), reps=1),
+                # the 3-limb <9,6,-20> on the same inputs: both kernels run
+                # their smallest (6-limb) instantiation
+                "ms_fig3": cuda_ms(torch, lambda: ops.fdp_gemm(a, b, spec=F3, plan=plan,
+                                                               impl="loop"), reps=10),
+                "vector_ms_fig3": cuda_ms(torch, lambda: ops.fdp_gemm(a, b, spec=F3, plan=plan),
+                                          reps=10),
+                **bound(4 * (M * Kd + Kd * N + M * N), ops_n)}
+            r = loop_sites[name]
+            log(f"  {name}: seed-order kernel {r['ms']:.4f} ms, vector kernel "
+                f"{r['vector_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms; bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) = "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of the seed-order kernel; at "
+                f"{F3.describe()}: seed-order {r['ms_fig3']:.4f} ms, vector "
+                f"{r['vector_ms_fig3']:.4f} ms")
+        del a, b, want, got, vec
+    loop_launches = K.fdp_gemm_looped.launches
+    if loop_launches <= 0:
+        fail("the seed-order kernel was never launched")
+    log(f"seed-order kernel launches {loop_launches} in phase 12 ({len(loop_cases)} checks "
+        f"and the timing repeats)")
+    torch.cuda.empty_cache()
+
+    # -- 13. the generator: native, simulate and pallas targets --------------
+    from repro_torch.core import metrics
+    from repro_torch.core.generator import generate_gemm
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    gen_runs = {}
+    for shape_name, (M, Kd, N) in (("quickstart", (64, 256, 32)),
+                                   ("qwen mlp_in prefill", (BATCH * PROMPT, d, f))):
+        an = rng.standard_normal((M, Kd)).astype(np.float32)
+        bn = rng.standard_normal((Kd, N)).astype(np.float32)
+        ref64 = an.astype(np.float64) @ bn.astype(np.float64)
+        a, b = torch.from_numpy(an).to(dev), torch.from_numpy(bn).to(dev)
+        for spec in (P91, F3):
+            outs = {}
+            for target, tile in (("native", None), ("simulate", None),
+                                 ("pallas", (32, 32, 128)), ("pallas", None)):
+                g = generate_gemm(None if target == "native" else spec, FP32, target, tile)
+                log(g.report.describe())
+                outs[(target, tile)] = g.fn(a, b)
+            torch.cuda.synchronize()
+            sim = outs[("simulate", None)]
+            for tile in ((32, 32, 128), None):
+                if not torch.equal(outs[("pallas", tile)], sim):
+                    fail(f"generate_gemm pallas (tile {tile}) != simulate at {shape_name} "
+                         f"{(M, Kd, N)} {spec.describe()}")
+            bits = {t: metrics.correct_bits(o, ref64) for (t, _), o in outs.items()}
+            gen_runs[f"{shape_name} {spec.describe()}"] = {
+                t: {"median_correct_bits": float(np.median(v)), "min_correct_bits":
+                    float(v.min())} for t, v in bits.items()}
+            log(f"generate_gemm at {shape_name} {(M, Kd, N)}, {spec.describe()}: pallas "
+                f"(tile (32, 32, 128) and plan_gemm's) torch.equal simulate; correct bits "
+                f"against an f64 product, median/min: "
+                + "; ".join(f"{t} {float(np.median(v)):.1f}/{float(v.min()):.1f}"
+                            for t, v in bits.items()))
+
+    # -- 14. qwen3-0.6b at full width, served under a PrecisionPlan from JSON --
+    from repro_torch.numerics import PrecisionPlan, SitePlan
+    from repro_torch.train.optimizer import state_quant_from_policy
+
+    kernel_cfg = D.GemmConfig(FP32, P91, "pallas")
+    plan = PrecisionPlan(
+        name="qwen3-0.6b fig3 mlp", default=kernel_cfg,
+        sites=tuple(SitePlan(s, D.GemmConfig(FP32, F3, "pallas"))
+                    for s in ("mlp_in", "mlp_gate", "mlp_out"))
+        + (SitePlan("lm_head", D.GemmConfig(FP32, None, "native")),))
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_path = os.path.join(tmp, "qwen3_0p6b_fig3.json")
+        plan.save(plan_path)
+        plan_policy = D.policy_from_plan(plan_path)       # the model gets it from the file
+    log("precision plan saved and loaded back:\n" + plan.describe())
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    params = init(cfg, seed=0, device=dev)
+
+    def serve_under(policy):
+        with D.use_policy(policy):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = serve(cfg, params, prompts, GEN, device=dev)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+    launched_at: dict = {}
+    last = [0]
+
+    def attribute_launches(site_key, cfg_, a_, b_, out_):
+        n = K.fdp_gemm.launches
+        launched_at[site_key] = launched_at.get(site_key, 0) + n - last[0]
+        last[0] = n
+
+    D.reset_sites_seen()
+    K.fdp_gemm.launches = 0
+    remove_hook = D.add_trace_hook(attribute_launches)
+    try:
+        plan_toks, first_s = serve_under(plan_policy)
+    finally:
+        remove_hook()
+    plan_launches = K.fdp_gemm.launches
+    calls = D.site_calls()
+    pallas_sites = sorted(s for s in calls if plan_policy.lookup(s).mode == "pallas")
+    n_pallas = sum(calls[s] for s in pallas_sites)
+    if any("@bwd" in s for s in calls):
+        fail(f"a forward-only serve dispatched backward sites: {sorted(calls)}")
+    if "lm_head" not in calls or plan_policy.lookup("lm_head").mode != "native":
+        fail(f"lm_head did not dispatch natively: {calls}")
+    if plan_launches <= 0 or plan_launches != n_pallas:
+        fail(f"dense kernel launches {plan_launches} != dispatches at the plan's pallas "
+             f"sites {n_pallas}")
+    if launched_at.get("lm_head", 0) != 0 or any(launched_at.get(s) != calls[s]
+                                                  for s in pallas_sites):
+        fail(f"launches by site {launched_at} != pallas dispatches {calls}")
+    plan_s = []
+    for _ in range(SERVE_RUNS):
+        again, dt = serve_under(plan_policy)
+        if not torch.equal(again, plan_toks):
+            fail("plan-served tokens differ between runs")
+        plan_s.append(dt)
+    plan_med = sorted(plan_s)[len(plan_s) // 2]
+    plan_serve = {"launches": plan_launches, "calls": calls, "first_serve_s": first_s,
+                  "serve_s": plan_s, "tok_s": BATCH * GEN / plan_med,
+                  "fdp91_kernel_tok_s": qwen["tok_s"], "fp32_tok_s": qwen["fp32_tok_s"]}
+    log(f"serve qwen3-0.6b ({cfg.n_layers} layers, full width) under the plan "
+        f"{plan_policy.name!r} from JSON: dense kernel launches {plan_launches} == "
+        f"dispatches at its pallas sites {n_pallas} (by site, from a trace hook: "
+        + ", ".join(f"{s} {launched_at.get(s, 0)}" for s in sorted(calls))
+        + "); lm_head native, 0 launches; no @bwd site")
+    log(f"  seconds per serve (after a first, hooked serve of {first_s:.3f} s): "
+        f"{', '.join(f'{x:.3f}' for x in plan_s)}; median {plan_med:.3f} s = "
+        f"{plan_serve['tok_s']:.2f} tok/s, beside {qwen['tok_s']:.2f} under "
+        f"{FDP91_KERNEL.name} and {qwen['fp32_tok_s']:.2f} under {D.MXU_FP32.name} "
+        f"(phase 3, this run); tokens repeat across runs")
+    del params
+    torch.cuda.empty_cache()
+
+    def simulate_twin(policy):
+        swap = lambda c: dataclasses.replace(c, mode="simulate") if c.mode == "pallas" else c
+        return dataclasses.replace(policy, default=swap(policy.default),
+                                   overrides=tuple((p, swap(c)) for p, c in policy.overrides),
+                                   name=policy.name + "/simulate")
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = init(cfg2, seed=0, device=dev)
+    batch = {"tokens": torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT),
+                                     generator=torch.Generator().manual_seed(2)).to(dev)}
+    with torch.no_grad():
+        logits = {}
+        for name, pol in (("plan", plan_policy), ("twin", simulate_twin(plan_policy)),
+                          ("fp32", D.MXU_FP32)):
+            with D.use_policy(pol):
+                t = time.perf_counter()
+                logits[name] = forward(params, cfg2, batch)
+                torch.cuda.synchronize()
+                log(f"  2-layer forward under {pol.name}: {time.perf_counter() - t:.3f} s")
+    if not bool(torch.isfinite(logits["plan"][..., :cfg2.vocab_size]).all()):
+        fail("plan logits are not finite")
+    if not torch.equal(logits["plan"], logits["twin"]):
+        fail(f"plan logits != its simulate twin's: max |diff| "
+             f"{(logits['plan'] - logits['twin']).abs().max().item()}")
+    top1 = metrics.top1_agreement(logits["plan"][..., :cfg2.vocab_size],
+                                  logits["fp32"][..., :cfg2.vocab_size])
+    plan_serve["top1_vs_fp32_2layer"] = top1
+    log(f"2-layer full-width qwen3-0.6b {tuple(batch['tokens'].shape)}: logits under the "
+        f"plan torch.equal its simulate twin; top-1 agreement with native fp32 {top1:.4f}")
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # -- 15. the checked-in zoo plan, unchanged, at full width ----------------
+    zoo_path = os.path.join(ROOT, "examples", "plans", "qwen3_0p6b.json")
+    zoo_policy = D.policy_from_plan(zoo_path)
+    params = init(cfg, seed=0, device=dev)
+    all_kernels = (K.fdp_gemm, K.fdp_ragged_gemm, K.fdp_ragged_dw, K.fdp_gemm_looped)
+    D.reset_sites_seen()
+    for w in all_kernels:
+        w.launches = 0
+    zoo_toks, zoo_s = serve_under(zoo_policy)
+    zoo_calls = D.site_calls()
+    if not zoo_calls or any(w.launches for w in all_kernels):
+        fail(f"the zoo plan launched FDP kernels {[w.launches for w in all_kernels]} "
+             f"(dispatches {zoo_calls})")
+    squant = state_quant_from_policy(zoo_policy)
+    if squant is None or {m: c.tag() for m, c in squant.items()} != {"mu": "q8b64",
+                                                                     "nu": "q8b64"}:
+        fail(f"state_quant_from_policy of the zoo plan: {squant}")
+    zoo_serve = {"serve_s": zoo_s, "tok_s": BATCH * GEN / zoo_s, "calls": zoo_calls,
+                 "state_quant": {m: c.tag() for m, c in squant.items()}}
+    log(f"serve qwen3-0.6b at full width under the zoo plan {zoo_policy.name!r} "
+        f"(examples/plans/qwen3_0p6b.json, unchanged): {zoo_s:.3f} s = "
+        f"{zoo_serve['tok_s']:.2f} tok/s, {sum(zoo_calls.values())} native dispatches, 0 FDP "
+        f"launches; state_quant_from_policy: "
+        + ", ".join(f"{m}={c.tag()}" for m, c in sorted(squant.items())))
+    del params
+    torch.cuda.empty_cache()
+
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
+    hot = loop_sites["bench hot shape"]
     print(json.dumps({"kernels": [{
         "name": "fdp_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_gemm.cu",
@@ -927,6 +1210,19 @@ def main() -> None:
               f"fp32 {P91.describe()}; plain_ms on {dw_in['plain_at']}",
         "sites": dw_sites,
         "dbrx_train": train, "dbrx_1layer_grads_pallas_vs_simulate": grads_eq,
+    }, {
+        "name": "fdp_gemm_looped", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fdp_gemm_looped.cu",
+        "replaces": "src/repro/kernels/fdp_gemm.py:103",
+        "launches": loop_launches,
+        "launches_by_path": {"seed-order vs vector comparison (phase 12)": loop_launches},
+        "max_abs_err": loop_err,
+        "ms": hot["ms"], "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
+        "bound_by": hot["bound_by"], "library_ms": None,
+        "at": f"bench hot shape {tuple(hot['shape'])} at the seed tile {tuple(hot['plan'])} "
+              f"fp32 {P91.describe()}",
+        "shapes": loop_sites, "generator": gen_runs,
+        "qwen_plan_serve": plan_serve, "qwen_zoo_plan_serve": zoo_serve,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

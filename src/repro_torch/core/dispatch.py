@@ -23,8 +23,14 @@ the ambient one at backward time: for CUDA tensors torch runs ``backward``
 on its own device thread, where the thread-local policy of ``use_policy``
 is not installed.
 
-``reduce_axis`` (sharded contractions), plan autotuning and trace hooks come
-with later slices.
+Every dispatch, forward or backward, in every mode, reports ``(site_key,
+cfg, a, b, out)`` to the trace hooks (``set_trace_hook``, ``add_trace_hook``)
+when any is installed; with none, the check is one ``is None``. A
+``PrecisionPlan`` JSON deploys through ``policy_from_plan``; its non-GEMM
+(optimizer-state, collective) assignments ride in ``NumericsPolicy.aux``.
+
+``reduce_axis`` (sharded contractions) and plan autotuning come with later
+slices.
 """
 
 from __future__ import annotations
@@ -163,6 +169,11 @@ class NumericsPolicy:
     default: GemmConfig = GemmConfig()
     overrides: tuple = ()                      # tuple[(pattern, GemmConfig)]
     name: str = "default"
+    # Non-GEMM precision assignments keyed by qformat site keys
+    # ("opt.m@state", "grad_psum@coll") mapping to qformat.QuantConfig. Kept
+    # out of ``overrides``: aux keys are not GemmSites, and GemmConfig
+    # consumers never see them.
+    aux: tuple = ()                            # tuple[(site_key, QuantConfig)]
 
     def lookup(self, site: Union[str, GemmSite]) -> GemmConfig:
         s = GemmSite.parse(site)
@@ -173,9 +184,21 @@ class NumericsPolicy:
                 best, best_score = cfg, sc
         return best if best is not None else self.default
 
+    def aux_lookup(self, site_key: str):
+        """QuantConfig for an aux (state/collective) site key, or None when
+        the policy leaves that site at its fp32 default."""
+        for key, cfg in self.aux:
+            if key == site_key:
+                return cfg
+        return None
+
     def with_override(self, pattern: str, cfg: GemmConfig) -> "NumericsPolicy":
         return dataclasses.replace(
             self, overrides=((pattern, cfg),) + tuple(self.overrides))
+
+    def with_aux(self, site_key: str, cfg) -> "NumericsPolicy":
+        kept = tuple((k, c) for k, c in self.aux if k != site_key)
+        return dataclasses.replace(self, aux=((site_key, cfg),) + kept)
 
 
 MXU_BF16 = NumericsPolicy(GemmConfig(BF16, None, "native"), name="mxu_bf16")
@@ -260,6 +283,65 @@ def _note_site(key: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Trace hooks
+# ---------------------------------------------------------------------------
+# Every dispatched GEMM reports (site_key, cfg, a, b, out) to the installed
+# hooks, forward and backward sites under their own keys, in every mode. The
+# hook runs eagerly, after the GEMM, on the thread that dispatched it (for a
+# CUDA backward, autograd's device thread). ``_TRACE_HOOK`` is None-checked
+# so that the path costs nothing without a hook.
+_TRACE_HOOK = None          # composed view over the slots below
+_PRIMARY_HOOK = None        # the calibration slot (set_trace_hook)
+_EXTRA_HOOKS: list = []     # additive observers (add_trace_hook)
+
+
+def _recompose_hooks() -> None:
+    global _TRACE_HOOK
+    hooks = ([_PRIMARY_HOOK] if _PRIMARY_HOOK is not None else []) + list(_EXTRA_HOOKS)
+    if not hooks:
+        _TRACE_HOOK = None
+    elif len(hooks) == 1:
+        _TRACE_HOOK = hooks[0]
+    else:
+        def _fanout(site_key, cfg, a, b, out, _hooks=tuple(hooks)):
+            for h in _hooks:
+                h(site_key, cfg, a, b, out)
+        _TRACE_HOOK = _fanout
+
+
+def set_trace_hook(hook):
+    """Install (or clear, with None) the primary hook; returns the previous
+    one so callers can restore it. Hooks added with ``add_trace_hook`` are a
+    separate channel and keep firing across set/restore pairs."""
+    global _PRIMARY_HOOK
+    prev = _PRIMARY_HOOK
+    _PRIMARY_HOOK = hook
+    _recompose_hooks()
+    return prev
+
+
+def add_trace_hook(hook):
+    """Install an additional hook beside the primary slot. Returns a
+    zero-argument remover."""
+    _EXTRA_HOOKS.append(hook)
+    _recompose_hooks()
+
+    def _remove():
+        try:
+            _EXTRA_HOOKS.remove(hook)
+        except ValueError:
+            pass
+        _recompose_hooks()
+    return _remove
+
+
+def _maybe_trace(site_key, cfg, a, b, out):
+    if _TRACE_HOOK is not None:
+        _TRACE_HOOK(site_key, cfg, a, b, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # GemmPlan: cached block-size plans
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
@@ -301,8 +383,24 @@ def _heuristic_plan(batch: int, m: int, n: int, k: int) -> GemmPlan:
     return GemmPlan(bm, bn, bk, source="heuristic")
 
 
+@dataclasses.dataclass(frozen=True)
+class PlanCacheStats:
+    """Typed snapshot of the plan cache's counters. ``autotuned`` and
+    ``persisted_loads`` stay 0 in the port until plan autotuning and the
+    schedule zoo are ported."""
+
+    size: int
+    hits: int
+    misses: int
+    autotuned: int
+    persisted_loads: int
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
 _PLAN_CACHE: dict = {}
-_PLAN_OPS = {"hits": 0, "misses": 0}
+_PLAN_OPS = {"hits": 0, "misses": 0, "autotuned": 0, "persisted_loads": 0}
 _PLAN_LOCK = threading.Lock()
 
 
@@ -320,16 +418,25 @@ def plan_gemm(m: int, n: int, k: int, *, fmt, spec: AccumulatorSpec,
         return _PLAN_CACHE.setdefault(key, _heuristic_plan(batch, m, n, k))
 
 
-def plan_cache_stats() -> dict:
-    """{"size", "hits", "misses"} of the process-global plan cache."""
+def register_plan(m: int, n: int, k: int, plan: GemmPlan, *, fmt,
+                  spec: AccumulatorSpec, batch: int = 1, backend: str = "cuda") -> None:
+    """Pin a plan (e.g. from an offline sweep) for a problem signature; it is
+    cached with ``source="override"``."""
+    key = (batch, m, n, k, fmt.name, spec, backend)
     with _PLAN_LOCK:
-        return {"size": len(_PLAN_CACHE), **_PLAN_OPS}
+        _PLAN_CACHE[key] = dataclasses.replace(plan, source="override")
+
+
+def plan_cache_stats() -> PlanCacheStats:
+    """Counters of the process-global plan cache."""
+    with _PLAN_LOCK:
+        return PlanCacheStats(size=len(_PLAN_CACHE), **_PLAN_OPS)
 
 
 def clear_plan_cache() -> None:
     with _PLAN_LOCK:
         _PLAN_CACHE.clear()
-        _PLAN_OPS.update(hits=0, misses=0)
+        _PLAN_OPS.update(dict.fromkeys(_PLAN_OPS, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +444,10 @@ def clear_plan_cache() -> None:
 # ---------------------------------------------------------------------------
 def _dispatch(site: GemmSite, cfg: GemmConfig, a: torch.Tensor, b: torch.Tensor,
               *, plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """Run one matmul as one site: count the key, execute under the resolved
+    config, report to the trace hooks."""
     _note_site(site.key)
-    return _execute(cfg, a, b, plan=plan)
+    return _maybe_trace(site.key, cfg, a, b, _execute(cfg, a, b, plan=plan))
 
 
 def _execute(cfg: GemmConfig, a: torch.Tensor, b: torch.Tensor, *,
@@ -451,25 +560,32 @@ def _grouped_qk_execute(site: GemmSite, cfg: GemmConfig, q: torch.Tensor,
                         k: torch.Tensor) -> torch.Tensor:
     """q (B,Kh,G,Sq,hd) x k (B,Kh,Sk,hd) -> (B,Kh,G,Sq,Sk). FDP modes run
     one flattened 4-D dispatch."""
-    _note_site(site.key)
-    if cfg.mode == "native":
-        return torch.einsum("bkgqd,bksd->bkgqs", cfg.fmt.quantize(q),
-                            cfg.fmt.quantize(k))
     B, Kh, G, Sq, hd = q.shape
-    out = _execute(cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2))
-    return out.reshape(B, Kh, G, Sq, k.shape[2])
+    if cfg.mode != "native":
+        out = _dispatch(site, cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2))
+        return out.reshape(B, Kh, G, Sq, k.shape[2])
+    _note_site(site.key)
+    out = torch.einsum("bkgqd,bksd->bkgqs", cfg.fmt.quantize(q), cfg.fmt.quantize(k))
+    if _TRACE_HOOK is not None:
+        # reported in matmul shape, as the FDP modes dispatch it
+        _TRACE_HOOK(site.key, cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2),
+                    out.reshape(B, Kh, G * Sq, -1))
+    return out
 
 
 def _grouped_av_execute(site: GemmSite, cfg: GemmConfig, p: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """p (B,Kh,G,Sq,Sk) x v (B,Kh,Sk,hd) -> (B,Kh,G,Sq,hd)."""
-    _note_site(site.key)
-    if cfg.mode == "native":
-        return torch.einsum("bkgqs,bksd->bkgqd", cfg.fmt.quantize(p),
-                            cfg.fmt.quantize(v))
     B, Kh, G, Sq, Sk = p.shape
-    out = _execute(cfg, p.reshape(B, Kh, G * Sq, Sk), v)
-    return out.reshape(B, Kh, G, Sq, v.shape[-1])
+    if cfg.mode != "native":
+        out = _dispatch(site, cfg, p.reshape(B, Kh, G * Sq, Sk), v)
+        return out.reshape(B, Kh, G, Sq, v.shape[-1])
+    _note_site(site.key)
+    out = torch.einsum("bkgqs,bksd->bkgqd", cfg.fmt.quantize(p), cfg.fmt.quantize(v))
+    if _TRACE_HOOK is not None:
+        _TRACE_HOOK(site.key, cfg, p.reshape(B, Kh, G * Sq, Sk), v,
+                    out.reshape(B, Kh, G * Sq, -1))
+    return out
 
 
 def _grouped_dright(site: GemmSite, cfg: GemmConfig, lhs: torch.Tensor,
@@ -477,14 +593,16 @@ def _grouped_dright(site: GemmSite, cfg: GemmConfig, lhs: torch.Tensor,
     """The shared dK/dV backward contraction ``bkgqx,bkgqy->bkxy`` (sum over
     heads-in-group and query positions): dK = dright(g, q), dV = dright(p,
     g)."""
-    _note_site(site.key)
-    if cfg.mode == "native":
-        return torch.einsum("bkgqx,bkgqy->bkxy", cfg.fmt.quantize(lhs),
-                            cfg.fmt.quantize(rhs))
     B, Kh, G, Sq, X = lhs.shape
-    lf = lhs.reshape(B, Kh, G * Sq, X).transpose(-1, -2)
-    rf = rhs.reshape(B, Kh, G * Sq, -1)
-    return _execute(cfg, lf, rf)
+    flat = lambda: (lhs.reshape(B, Kh, G * Sq, X).transpose(-1, -2),
+                    rhs.reshape(B, Kh, G * Sq, -1))
+    if cfg.mode != "native":
+        return _dispatch(site, cfg, *flat())
+    _note_site(site.key)
+    out = torch.einsum("bkgqx,bkgqy->bkxy", cfg.fmt.quantize(lhs), cfg.fmt.quantize(rhs))
+    if _TRACE_HOOK is not None:
+        _TRACE_HOOK(site.key, cfg, *flat(), out)
+    return out
 
 
 class _GroupedQK(torch.autograd.Function):
@@ -576,8 +694,20 @@ def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
                read on the host, and rows past the total are 0.0.
     simulate - ``core.fdp.fdp_ragged_gemm``: one FDP GEMM per group on its
                rows (reads the group sizes on the host; the plain oracle).
-    pallas   - the sorted-segment kernel (its plain version on the CPU)."""
+    pallas   - the sorted-segment kernel (its plain version on the CPU).
+
+    The trace hooks see one (T, d) x (E*d, f) call: the rows and the whole
+    flattened expert stack, as the reference reports it."""
     _note_site(site.key)
+    out = _ragged_mode_switch(cfg, x, w, group_sizes)
+    if _TRACE_HOOK is not None:
+        E, d, f = w.shape
+        _TRACE_HOOK(site.key, cfg, x, w.reshape(E * d, f), out)
+    return out
+
+
+def _ragged_mode_switch(cfg: GemmConfig, x: torch.Tensor, w: torch.Tensor,
+                        group_sizes: torch.Tensor) -> torch.Tensor:
     if cfg.mode == "native":
         if not isinstance(cfg.fmt, FloatFormat):
             raise ValueError(f"native mode needs a float format, not {cfg.fmt.name}")
@@ -606,8 +736,19 @@ def _ragged_dw(site: GemmSite, cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor
     simulate - ``core.fdp.fdp_ragged_dw``: one FDP GEMM per group on its
                rows (the same bits as the masked pass).
     pallas   - the sorted-segment weight-gradient kernel (its plain version
-               on the CPU)."""
+               on the CPU).
+
+    The trace hooks see one (d, T) x (T, f) call and the (E*d, f) output."""
     _note_site(site.key)
+    out = _ragged_dw_mode_switch(cfg, x, g, group_sizes)
+    if _TRACE_HOOK is not None:
+        E, d, f = out.shape
+        _TRACE_HOOK(site.key, cfg, x.transpose(0, 1), g, out.reshape(E * d, f))
+    return out
+
+
+def _ragged_dw_mode_switch(cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor,
+                           group_sizes: torch.Tensor) -> torch.Tensor:
     E = group_sizes.shape[0]
     if cfg.mode == "native":
         if not isinstance(cfg.fmt, FloatFormat):
@@ -662,3 +803,21 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
     and ``<site>@bwd.dB`` (dW)."""
     pol = policy or current_policy()
     return _Ragged.apply(x, w, group_sizes, GemmSite.parse(site), pol)
+
+
+def policy_from_plan(path) -> NumericsPolicy:
+    """Load a serialized ``PrecisionPlan`` and return the NumericsPolicy it
+    deploys (the ``--precision-plan`` entry point)."""
+    from repro_torch.numerics import load_plan    # deferred: numerics imports us
+    return load_plan(path).to_policy()
+
+
+def quantize_inputs(x: torch.Tensor, site: Union[str, GemmSite] = "generic",
+                    policy: Optional[NumericsPolicy] = None) -> torch.Tensor:
+    """Round an activation or weight onto the grid of the format its site's
+    config names, keeping ``x``'s dtype (posit values come back as floats)."""
+    pol = policy or current_policy()
+    fmt = pol.lookup(site).fmt
+    if isinstance(fmt, PositFormat):
+        return fmt.to_float(fmt.from_float(x)).to(x.dtype)
+    return x.to(fmt.torch_dtype).to(x.dtype)

@@ -1,2 +1,3 @@
-# Hand-written Hopper kernels: fdp_gemm.py (wrapper, plain version, build) +
-# csrc/fdp_gemm.cu (the CUDA kernel) + ops.py (public entry points) + ref.py.
+# Hand-written Hopper kernels: fdp_gemm.py (wrappers, plain versions, build) +
+# csrc/*.cu (the CUDA kernels, sharing csrc/fdp_common.cuh) + ops.py (public
+# entry points) + ref.py.

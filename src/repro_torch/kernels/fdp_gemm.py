@@ -7,6 +7,12 @@ register and one rounding per output. It replaces the Pallas body
 ``fdp_gemm_pallas_batched`` (every N-D call) and ``fdp_gemm_pallas`` (2-D
 calls, which here are the batched call with B = 1).
 
+``fdp_gemm_looped(a, b, plan, spec=..., fmt=...)`` is the same function,
+2-D, computed in the seed's order: one thread per output walks k in order
+and normalizes carries once per ``plan.bk`` products. It replaces the
+Pallas body ``fdp_gemm_kernel_looped`` (``fdp_gemm_pallas(impl="loop")``),
+the baseline the vectorized engine is measured against.
+
 ``fdp_ragged_gemm(x, w, group_sizes, spec=..., fmt=...)`` is the
 sorted-segment MoE forward: ``x (T, d)`` rows sorted by group, ``w (E, d,
 f)``, ``group_sizes (E,)`` -> ``(T, f)`` f32, row ``t`` against the weights
@@ -22,24 +28,27 @@ zeros for a zero-size group. It replaces the Pallas body
 ``fdp_ragged_dw_kernel`` (through ``fdp_ragged_dw_pallas``); each thread
 finds its group's row window from the group sizes on the device.
 
-What bounds all three on the card: int32 CUDA-core operations per exact product
+What bounds all four on the card: int32 CUDA-core operations per exact product
 (form the 48-bit significand product, align it to the grid, add four
 16-bit pieces into the limbs), not bytes and not the tensor cores, which
 have no exact wide-integer accumulate. The simple design (``csrc/``; the
-device math is ``csrc/fdp_common.cuh``, shared by all three kernels) keeps each
+device math is ``csrc/fdp_common.cuh``, shared by all four kernels) keeps each
 output's limbs in registers, so the placement is compare-and-select over a
 compile-time number of limbs with no local-memory traffic. The two forward
 kernels split K over eight threads per output, whose registers are summed
 exactly in shared memory, so that decode shapes (M = 1, or 16 expert rows)
 still fill the card; the weight-gradient kernel, whose K is a group's few
-rows and whose outputs number E*d*f, gives each output one thread. It spends more operations than the function needs: both operands are
-decoded per product and every limb is selected per product. ``int32_ops``
+rows and whose outputs number E*d*f, and the seed-order kernel, whose
+point is the per-k order, give each output one thread. They spend more
+operations than the function needs: both operands are decoded per product
+and every limb is selected per product. ``int32_ops``
 counts what the function needs, whatever the design; ``chip_smoke.py``
 turns that count into the bound it reports.
 
 On CPU tensors the wrappers run the plain PyTorch versions
 (``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``, ``fdp_ragged_dw_plain``: the
-port's ``simulate`` mode); on CUDA tensors they launch the kernel or raise. Each source in
+port's ``simulate`` mode; ``fdp_gemm_looped`` runs ``core.fdp.fdp_gemm``); on
+CUDA tensors they launch the kernel or raise. Each source in
 ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` at first use, all at
 once, into a shared library in ``_build/`` beside this file (git ignores
 it), and bound through ctypes.
@@ -58,7 +67,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core import fdp as core_fdp
-from repro_torch.core.accumulator import AccumulatorSpec
+from repro_torch.core.accumulator import SAFE_CHUNK, AccumulatorSpec
 from repro_torch.core.formats import PositFormat
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -72,6 +81,9 @@ _ENTRIES = {
     "fdp_gemm": ("fdp_gemm_launch",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
                  + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+    "fdp_gemm_looped": ("fdp_gemm_looped_launch",
+                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
+                        + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "fdp_ragged_gemm": ("fdp_ragged_gemm_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                         + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 8
@@ -253,6 +265,48 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
 
 
 fdp_gemm.launches = 0
+
+
+def fdp_gemm_looped(a: torch.Tensor, b: torch.Tensor, plan, *, spec: AccumulatorSpec,
+                    fmt) -> torch.Tensor:
+    """(M,K) @ (K,N) -> (M,N) f32 through the exact FDP datapath in the
+    seed's order. ``plan`` is a fitted ``GemmPlan``: a CUDA block covers its
+    ``bm x bn`` output tile and carries normalize every ``bk`` products
+    (``bk <= SAFE_CHUNK``, as ``GemmPlan.fit`` guarantees). ``a`` and ``b``
+    may have any strides. CPU tensors run the plain version (the same
+    function as ``fdp_gemm_plain``); CUDA tensors launch the kernel (counted
+    in ``fdp_gemm_looped.launches``)."""
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"fdp_gemm_looped expects (M,K) @ (K,N), got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    if not 1 <= plan.bk <= SAFE_CHUNK or plan.bm < 1 or plan.bn < 1:
+        raise ValueError(f"plan {plan.tile} is not fitted: 1 <= bk <= SAFE_CHUNK "
+                         f"({SAFE_CHUNK}) and positive bm, bn are required")
+    on = _check_device(a, b)
+    a, b = _carriers(fmt, a, b)
+    if on == "cpu":
+        return core_fdp.fdp_gemm(a, b, spec, fmt)
+    numerics = _numerics_args(spec, fmt)
+    M, K = a.shape
+    N = b.shape[1]
+    if -(-M // plan.bm) > 65535:
+        raise ValueError(f"{M} rows exceed the kernel grid (65535 tiles of {plan.bm})")
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = load()["fdp_gemm_looped"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = lib.fdp_gemm_looped_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, plan.bm, plan.bn,
+            plan.bk, *a.stride(), *b.stride(), *numerics, stream)
+    if err != 0:
+        raise RuntimeError(f"fdp_gemm_looped kernel launch failed: cudaError {err}")
+    _count(fdp_gemm_looped)
+    return out
+
+
+fdp_gemm_looped.launches = 0
 
 
 def fdp_ragged_gemm_plain(x: torch.Tensor, w: torch.Tensor,

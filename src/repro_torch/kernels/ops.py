@@ -4,9 +4,10 @@ last both forward and weight gradient).
 
 Every entry point takes ``plan: GemmPlan | None`` as the reference's
 GemmPlan-first API does, and a given plan is checked through
-``resolve_plan``. The CUDA kernels' tile is fixed (``csrc/``) and they mask
-ragged edges themselves, so no operand is padded and no plan changes a
-launch.
+``resolve_plan``. The vector kernels' tile is fixed (``csrc/``), so no plan
+changes their launch; the seed-order kernel of ``fdp_gemm(impl="loop")``
+takes its block tile and carry cadence from the fitted plan. Every kernel
+masks ragged edges itself, so no operand is padded.
 """
 
 from __future__ import annotations
@@ -34,12 +35,23 @@ def resolve_plan(plan, M: int, N: int, K: int) -> GemmPlan:
 
 
 def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
-             fmt=FP32, plan: GemmPlan | None = None) -> torch.Tensor:
-    """GEMM with tailored FDP accumulation: (M,K)@(K,N) -> (M,N) f32 (the
-    batched kernel with B = 1)."""
-    if plan is not None:
-        resolve_plan(plan, a.shape[0], b.shape[1], a.shape[1])
-    return _k.fdp_gemm(a[None], b[None], spec=spec, fmt=fmt)[0]
+             fmt=FP32, plan: GemmPlan | None = None,
+             impl: str = "vector") -> torch.Tensor:
+    """GEMM with tailored FDP accumulation: (M,K)@(K,N) -> (M,N) f32.
+
+    ``impl="vector"`` (the default) runs the batched kernel with B = 1;
+    ``impl="loop"`` runs the seed-order kernel (``fdp_gemm_looped``), whose
+    block covers the fitted plan's tile (``_DEFAULT_TILE`` without a plan)
+    and whose carries normalize every ``bk`` products. Same bits either
+    way."""
+    if impl == "vector":
+        if plan is not None:
+            resolve_plan(plan, a.shape[0], b.shape[1], a.shape[1])
+        return _k.fdp_gemm(a[None], b[None], spec=spec, fmt=fmt)[0]
+    if impl == "loop":
+        p = resolve_plan(plan, a.shape[0], b.shape[1], a.shape[1])
+        return _k.fdp_gemm_looped(a, b, p, spec=spec, fmt=fmt)
+    raise ValueError(f"unknown impl {impl!r}")
 
 
 def fdp_gemm_batched(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,

@@ -8,9 +8,13 @@ On the CPU at test size (any dense or MoE architecture, e.g. dbrx-132b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --reduced --device cpu
 
-``--policy`` picks one of the named uniform policies until precision plans
-(``--precision-plan``) are ported; the ``continuous`` and ``routed`` engines
-come with later slices.
+Under a precision plan (per-site numerics loaded from JSON):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --precision-plan examples/plans/qwen3_0p6b.json
+
+``--policy`` picks one of the named uniform policies instead; passing both
+is an error, so that it is never unclear which policy served. The
+``continuous`` and ``routed`` engines come with later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.accumulator import AccumulatorSpec
 from repro_torch.core.dispatch import (FDP91, MXU_BF16, MXU_FP32, GemmConfig,
-                                       NumericsPolicy, use_policy)
+                                       NumericsPolicy, policy_from_plan, use_policy)
 from repro_torch.core.formats import FP32
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init, init_cache, prefill
@@ -33,6 +37,16 @@ from repro_torch.models import decode_step, init, init_cache, prefill
 FDP91_KERNEL = NumericsPolicy(
     GemmConfig(FP32, AccumulatorSpec.paper_91bit(), "pallas"), name="fdp91_kernel")
 POLICIES = {p.name: p for p in (MXU_BF16, MXU_FP32, FDP91, FDP91_KERNEL)}
+
+
+def policy_from_args(args) -> NumericsPolicy:
+    """The policy of ``--policy`` or ``--precision-plan`` (passing both is an
+    error); ``MXU_BF16`` when neither is given."""
+    if args.precision_plan and args.policy:
+        raise SystemExit("pass --policy or --precision-plan, not both")
+    if args.precision_plan:
+        return policy_from_plan(args.precision_plan)
+    return POLICIES[args.policy or MXU_BF16.name]
 
 
 def _on(t: torch.Tensor, dev: torch.device) -> bool:
@@ -70,9 +84,13 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain PyTorch versions)")
     ap.add_argument("--engine", default="simple", choices=["simple"],
                     help="whole-batch decode (continuous/routed: later slices)")
-    ap.add_argument("--policy", default=MXU_BF16.name, choices=sorted(POLICIES),
-                    help="uniform numerics policy for every GEMM site")
+    ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
+                    help=f"uniform numerics policy for every GEMM site (default "
+                         f"{MXU_BF16.name})")
+    ap.add_argument("--precision-plan", default=None,
+                    help="serve under a PrecisionPlan JSON (per-site numerics)")
     args = ap.parse_args(argv)
+    policy = policy_from_args(args)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -83,12 +101,12 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen)
     t0 = time.perf_counter()
-    with use_policy(POLICIES[args.policy]):
+    with use_policy(policy):
         toks = serve(cfg, params, prompts, args.gen, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch}: engine={args.engine} policy={args.policy} "
+    print(f"[serve] {args.arch}: engine={args.engine} policy={policy.name} "
           f"device={dev} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
     print("sample:", toks[0].tolist())

@@ -8,10 +8,16 @@ policy with 8-bit block-scaled Adam moments:
 On the CPU at test size (the kernels' plain versions):
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
 
-``--policy`` names a uniform policy until precision plans load
-(``--precision-plan``, ROADMAP queue 1 item 5); ``--mesh``/``--profile``
-come with multi-device support (item 12). Without ``--ckpt`` checkpoints go
-to a temporary directory that is removed at the end.
+Under a precision plan (every GEMM site, and the Adam moments where the
+plan assigns ``opt.m@state``/``opt.v@state``):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --reduced --precision-plan examples/plans/qwen3_0p6b.json
+
+``--policy`` names a uniform policy instead; passing both is an error.
+``--opt-precision`` wins over the plan's moment sites. ``--mesh``/
+``--profile`` come with multi-device support (ROADMAP queue 1 item 12).
+Without ``--ckpt`` checkpoints go to a temporary directory that is removed
+at the end.
 """
 
 from __future__ import annotations
@@ -29,9 +35,9 @@ from repro_torch.core.dispatch import MXU_BF16
 from repro_torch.core.qformat import parse_quant
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import POLICIES
+from repro_torch.launch.serve import POLICIES, policy_from_args
 from repro_torch.train.loop import Trainer, make_train_step
-from repro_torch.train.optimizer import adamw, cosine_schedule
+from repro_torch.train.optimizer import adamw, cosine_schedule, state_quant_from_policy
 
 
 def parse_opt_precision(text):
@@ -62,12 +68,16 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--fdp-grad", action="store_true",
                     help="fixed-point (order-invariant) grad accumulation")
+    ap.add_argument("--precision-plan", default=None,
+                    help="train under a PrecisionPlan JSON (its GEMM sites, and "
+                         "its optimizer-state sites unless --opt-precision is given)")
     ap.add_argument("--opt-precision", default=None,
                     help="store Adam moments block-scaled: 'fp32', "
-                         "'BITSxBLOCK' ('8x64'), or 'M,V' per moment ('8x64,8x32')")
-    ap.add_argument("--policy", default=MXU_BF16.name, choices=sorted(POLICIES),
+                         "'BITSxBLOCK' ('8x64'), or 'M,V' per moment ('8x64,8x32'); "
+                         "overrides the plan's @state sites")
+    ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
                     help="uniform numerics policy for every forward and "
-                         "backward GEMM site")
+                         f"backward GEMM site (default {MXU_BF16.name})")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
     ap.add_argument("--log", default=None)
@@ -78,13 +88,16 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     fdp_spec = AccumulatorSpec(ovf=10, msb=10, lsb=-20) if args.fdp_grad else None
-    squant = parse_opt_precision(args.opt_precision)
+    policy = policy_from_args(args)
+    # optimizer-state formats: --opt-precision wins, else the plan's
+    # opt.m@state / opt.v@state assignments
+    squant = (parse_opt_precision(args.opt_precision) if args.opt_precision
+              else state_quant_from_policy(policy))
     opt = adamw(lr=cosine_schedule(args.lr, warmup=10, total=args.steps),
                 state_quant=squant)
     if squant:
         print("[train] quantized optimizer state: "
               + ", ".join(f"{m}={c.tag()}" for m, c in sorted(squant.items())))
-    policy = POLICIES[args.policy]
     step_fn = make_train_step(cfg, opt, remat="none", microbatches=args.microbatches,
                               fdp_grad_spec=fdp_spec, numerics_policy=policy)
     data_src = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=0, device=dev)

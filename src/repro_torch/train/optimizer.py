@@ -13,10 +13,8 @@ and the temporaries stay at a few slices however large the leaf (a 4.23 GB
 expert weight of dbrx-132b). Both compute the same arithmetic, elementwise
 in the reference's order.
 
-``state_quant_from_policy`` (the moment formats read off a precision
-plan's ``opt.m@state``/``opt.v@state`` assignments) waits for the
-policy's ``aux`` sites, which come with plan loading (ROADMAP queue 1
-item 5); ``state_quant`` is passed explicitly until then.
+``state_quant_from_policy`` reads the moment formats off a policy's aux
+assignments (a precision plan's ``opt.m@state``/``opt.v@state`` sites).
 """
 
 from __future__ import annotations
@@ -95,6 +93,20 @@ def optimizer_state_bytes(state) -> int:
             parts = leaf.values() if isinstance(leaf, dict) else (leaf,)
             total += sum(t.numel() * t.element_size() for t in parts)
     return total
+
+
+def state_quant_from_policy(policy) -> Optional[dict]:
+    """Map a ``NumericsPolicy``'s aux assignments onto ``adamw``'s
+    ``state_quant`` argument (None when the policy holds both moments at
+    fp32: no aux entries, or explicit fp32 ones)."""
+    if policy is None or not getattr(policy, "aux", ()):
+        return None
+    out = {}
+    for moment, site in (("mu", qformat.OPT_M_SITE), ("nu", qformat.OPT_V_SITE)):
+        cfg = policy.aux_lookup(site.key)
+        if cfg is not None and cfg.mode == "block":
+            out[moment] = cfg
+    return out or None
 
 
 def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.95,

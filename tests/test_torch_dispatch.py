@@ -161,12 +161,12 @@ def test_site_counts_and_plan_cache():
     assert TD.sites_seen() == {"mlp_in", "lm_head"}
     assert TD.site_calls() == {"mlp_in": 3, "lm_head": 1}
     # the kernel's tile is fixed: dispatch resolves no plan per call
-    assert TD.plan_cache_stats() == {"size": 0, "hits": 0, "misses": 0}
+    assert TD.plan_cache_stats() == TD.PlanCacheStats(0, 0, 0, 0, 0)
     assert tk.fdp_gemm.launches == launches        # CPU tensors: no launch
     for _ in range(2):
         plan = TD.plan_gemm(3, 5, 24, fmt=tfmt.FP32,
                             spec=tacc.AccumulatorSpec.paper_91bit(), batch=2, backend="cpu")
-    assert TD.plan_cache_stats() == {"size": 1, "hits": 1, "misses": 1}
+    assert TD.plan_cache_stats() == TD.PlanCacheStats(1, 1, 1, 0, 0)
     assert plan.tile == (8, 8, 24) and plan.fit(3, 5, 20000).bk == 24
     assert TD.GemmPlan(8, 8, 1 << 20).fit(8, 8, 1 << 20).bk == TD.SAFE_CHUNK
     TD.reset_sites_seen()

@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs, repro_torch.core.qformat, repro_torch.train, "
             "repro_torch.train.optimizer, repro_torch.train.loop, "
             "repro_torch.checkpoint.store, repro_torch.data.synthetic, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.numerics, repro_torch.numerics.plan, "
+            "repro_torch.core.energy, repro_torch.core.metrics, repro_torch.core.generator\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -177,3 +177,71 @@ def test_backward_on_the_card_uses_the_forward_policy():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert gx.shape == x.shape and bool(torch.isfinite(gx).all())
+
+
+@pytest.mark.cuda
+def test_looped_kernel_bit_equal_to_plain_on_card():
+    """The seed-order kernel (``ops.fdp_gemm(impl="loop")``) against its
+    plain version and the vector kernel: every format, rne and saturate,
+    ragged and strided operands, K past the plan's bk and past SAFE_CHUNK,
+    several tiles (one wider than a block's 1024 threads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core.dispatch import GemmPlan
+    from repro_torch.kernels import ops as tops
+
+    g = torch.Generator().manual_seed(3)
+    cases = [((5, 70, 9), "ieee_fp32", "paper_91bit", (32, 32, 128)),
+             ((17, 300, 33), "bfloat16", "rne", (8, 16, 64)),
+             ((4, 64, 40), "posit16_1", "saturate", (32, 32, 128)),
+             ((40, 1000, 24), "ieee_fp32", "paper_91bit", (64, 64, 256)),
+             ((3, tacc.SAFE_CHUNK + 700, 16), "ieee_fp32", "paper_91bit", (8, 8, 1 << 20))]
+    before = tk.fdp_gemm_looped.launches
+    for (M, K, N), fmt_name, spec_name, tile in cases:
+        tf = tfmt.get_format(fmt_name)
+        ts = tacc.AccumulatorSpec(**SPEC_ARGS[spec_name])
+        a, b = torch.randn(K, M, generator=g), torch.randn(K, 2 * N, generator=g)
+        if K > tacc.SAFE_CHUNK:
+            a, b = a.abs(), b.abs()                      # limbs grow: carries must normalize
+        if isinstance(tf, tfmt.PositFormat):
+            a, b = tf.from_float(a), tf.from_float(b)
+        a, b = a.cuda().T, b.cuda()[:, ::2]              # strided views
+        plan = GemmPlan(*tile)
+        want = tk.fdp_gemm_plain(a[None], b[None], spec=ts, fmt=tf)[0]
+        got = tops.fdp_gemm(a, b, spec=ts, fmt=tf, plan=plan, impl="loop")
+        vec = tops.fdp_gemm(a, b, spec=ts, fmt=tf, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), (M, K, N, fmt_name, spec_name, tile)
+        assert torch.equal(vec, got), (M, K, N, fmt_name, spec_name, tile)
+    assert tk.fdp_gemm_looped.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_looped_wrapper_raises_on_a_failed_launch(monkeypatch):
+    """The C entry point refuses an unfitted carry cadence with a non-zero
+    cudaError, and the wrapper raises on a non-zero code instead of falling
+    back to the plain version, and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core.dispatch import GemmPlan
+
+    spec = tacc.AccumulatorSpec(30, 30, -30)
+    a = torch.randn(4, 8, device="cuda")
+    b = torch.randn(8, 4, device="cuda")
+    out = torch.empty(4, 4, device="cuda")
+    lib = tk.load()["fdp_gemm_looped"]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fdp_gemm_looped_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), 4, 4, 8,
+                                     8, 8, 0, *a.stride(), *b.stride(),
+                                     *tk._numerics_args(spec, tfmt.FP32), stream)
+    assert err != 0                                      # bk = 0 is refused
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1                       # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tk, "load", lambda: {"fdp_gemm_looped": Refusing()})
+    before = tk.fdp_gemm_looped.launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tk.fdp_gemm_looped(a, b, GemmPlan(8, 8, 8), spec=spec, fmt=tfmt.FP32)
+    assert tk.fdp_gemm_looped.launches == before
