@@ -7,12 +7,22 @@ Hopper GPU. Run from the repository root with no arguments:
 Phases (any failure exits non-zero before the final line):
   1. the card (nvidia-smi name and power limit); build the FDP kernels from
      ``src/repro_torch/kernels/csrc/`` (one nvcc per source, in parallel)
-     and print the seconds;
+     and print the seconds; beside the build, ``kernels.sass_report``
+     compiles the dense kernel with ``-Xptxas -v`` and prints each
+     instantiation's registers, spills and SASS instructions a product;
   2. the dense FDP GEMM kernel against its plain PyTorch version on the
-     card, torch.equal, over formats, round/overflow modes, ragged and
-     broadcast shapes, a K long enough that carries normalize inside the
-     kernel's K loop, the full-width decode shapes of qwen3-0.6b, and the
-     2-D router shape of dbrx-132b through ``ops.fdp_gemm``; then the
+     card, torch.equal, over formats, round/overflow modes, register
+     capacities 2, 4, 6, 12 and 32 (1, 3, 6, 12 and 26 limbs; a saturating
+     3-limb register fed products past its top limb), thread tiles of 1, 2
+     and 4 rows (calls of 1, 2 and more rows), tiles ragged in M, N and K,
+     transposed operands, a broadcast weight that folds into the rows and
+     one that does not, one register fed more than SAFE_CHUNK positive
+     products whatever the K split, the full-width decode shapes of
+     qwen3-0.6b, the full-width dbrx-132b training LM head forward (on its
+     first 64 columns), and the 2-D router shape of dbrx-132b through
+     ``ops.fdp_gemm``; the dense kernel timed at the main path's shapes
+     (qwen3-0.6b's and dbrx-132b's attention at decode among them) at 91
+     bits and at <9,6,-20> on the same inputs, beside its bound; then the
      sorted-segment kernel against its plain version over formats, modes,
      zero-size groups (leading and trailing), one group holding every row,
      rows past the total, the three full-width expert shapes of a dbrx-132b
@@ -42,8 +52,8 @@ Phases (any failure exits non-zero before the final line):
      dbrx-132b training step (4 x 64 tokens, 1024 routed rows) on 64
      columns of g, timed on the whole shape; then the dense and
      sorted-segment kernels at that step's backward shapes, on slices: the
-     LM head's dA and dB, the router's dB, and moe_in's dX against the
-     transposed expert weights;
+     LM head's dA and dB, the router's dB (the dense kernel timed there at
+     both specs), and moe_in's dX against the transposed expert weights;
   9. dbrx-132b at full width, depth cut to 1 layer, trained: three steps of
      ``make_train_step`` (AdamW, cosine schedule, clip 1.0, both moments
      8x64) under the FDP kernel policy, with every kernel's launch count set
@@ -219,6 +229,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # -- 1. the card and the build ------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -227,15 +238,44 @@ def main() -> None:
     print(smi, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    # what ptxas made of the dense kernel (registers, spills, instructions a
+    # product), compiled beside the build
+    sass_proc = subprocess.Popen([sys.executable, "-m", "repro_torch.kernels.sass_report"],
+                                 cwd=ROOT, env={**os.environ, "PYTHONPATH": src},
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     t0 = time.perf_counter()
     libs = K.load()
     log(f"built and loaded the FDP kernels {sorted(libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    sass_out, sass_err = sass_proc.communicate()
+    if sass_proc.returncode != 0:
+        fail(f"sass_report failed: {sass_err[-2000:]}")
+    sass = []
+    for line in sass_out.splitlines():
+        r = json.loads(line)
+        lc, tm, rne, masked = r["template"]
+        loop = r["product_loop"] or {}
+        sass.append({"lc": lc, "tm": tm, "rne": rne, "masked": masked,
+                     "registers": r["registers"],
+                     "spill_bytes": r["spill_stores"] + r["spill_loads"],
+                     "loop_instructions": loop.get("instructions"),
+                     "loop_products": loop.get("products"),
+                     "instructions_per_product": loop.get("per_product")})
+        log(f"dense kernel LC={lc} TM={tm} rne={rne} masked={masked}: {r['registers']} "
+            f"registers, "
+            f"spills {r['spill_stores']}/{r['spill_loads']} bytes; product loop "
+            f"{loop.get('instructions')} instructions for {loop.get('products')} products = "
+            f"{loop.get('per_product', 0):.2f} a product")
 
     # -- 2. kernels vs plain versions on the card ----------------------------
     P91 = AccumulatorSpec.paper_91bit()
     RNE = AccumulatorSpec(30, 30, -30, round_mode="rne")
     SAT = AccumulatorSpec(2, 4, -20, overflow_mode="saturate")
+    F3 = AccumulatorSpec(ovf=9, msb=6, lsb=-20)          # the paper's Fig.-3 pick
+    F3_SAT = AccumulatorSpec(9, 6, -20, overflow_mode="saturate")
+    ONE = AccumulatorSpec(2, 5, -8)                      # 16 bits, 1 limb
+    WIDE = AccumulatorSpec(100, 200, -100, round_mode="rne")   # 401 bits, 26 limbs
+    WIDE12 = AccumulatorSpec(60, 60, -60)                # 181 bits, 12 limbs
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def on_grid(fmt, *ts):
@@ -244,12 +284,16 @@ def main() -> None:
         return [fmt.quantize(t) for t in ts]
 
     def operands(B, M, Kd, N, fmt, a_scale=1.0, b_scale=1.0, bcast=False,
-                 positive=False):
+                 positive=False, ta=False, tb=False):
         a = torch.randn(B, M, Kd, generator=gen, device=dev) * a_scale
         b = torch.randn(1 if bcast else B, Kd, N, generator=gen, device=dev) * b_scale
         if positive:
             a, b = a.abs(), b.abs()
         a, b = on_grid(fmt, a, b)
+        if ta:                                           # transposed views
+            a = a.transpose(1, 2).contiguous().transpose(1, 2)
+        if tb:
+            b = b.transpose(1, 2).contiguous().transpose(1, 2)
         return a, (b.expand(B, Kd, N) if bcast else b)
 
     def n_saturated(got, spec):
@@ -282,11 +326,29 @@ def main() -> None:
         ("posit16_1 91-bit", (2, 4, 64, 40), POSIT16_1, P91, {}),
         ("fp32 rne", (2, 4, 200, 40), FP32, RNE, {}),
         ("fp32 saturate <2,4,-20>", (2, 4, 200, 40), FP32, SAT, {"a_scale": 4.0}),
-        ("fp32 stride-0 weight", (4, 7, 96, 33), FP32, P91, {"bcast": True}),
-        # each of the kernel's 8 K-slices holds 4 x SAFE_CHUNK + 5 positive
-        # products, so limbs grow toward 2^31 and must normalize in the loop
-        ("fp32 K-slices past the carry cadence", (1, 2, 32 * SAFE_CHUNK + 37, 64),
-         FP32, P91, {"positive": True}),
+        ("fp32 stride-0 weight that folds into the rows", (4, 7, 96, 33), FP32, P91,
+         {"bcast": True}),
+        ("fp32 stride-0 weight, a transposed so that it does not fold", (4, 7, 96, 33),
+         FP32, P91, {"bcast": True, "ta": True}),
+        ("fp32 <9,6,-20> (3 limbs, capacity 4)", (3, 17, 150, 45), FP32, F3, {}),
+        ("fp32 saturate <9,6,-20>, products past the top limb", (2, 4, 200, 40), FP32,
+         F3_SAT, {"a_scale": 3e6}),
+        ("fp32 1-limb <2,5,-8> (capacity 2)", (2, 9, 100, 37), FP32, ONE, {"a_scale": 8.0}),
+        ("fp32 1 row a batch element (a thread tile of 1 row)", (3, 1, 100, 37), FP32, P91,
+         {}),
+        ("fp32 saturate <9,6,-20>, 2 rows a batch element (a thread tile of 2 rows)",
+         (5, 2, 130, 21), FP32, F3_SAT, {"a_scale": 3e6}),
+        ("fp32 <60,60,-60> (12 limbs, capacity 12), 1 row a batch element", (3, 1, 90, 19),
+         FP32, WIDE12, {"a_scale": 1e10}),
+        ("fp32 401-bit rne (26 limbs, capacity 32, one output a thread)", (1, 37, 170, 29),
+         FP32, WIDE, {"a_scale": 1e20}),
+        ("fp32 tiles ragged in M, N and K", (1, 37, 333, 71), FP32, P91, {}),
+        ("fp32 transposed a and b", (2, 33, 257, 65), FP32, P91, {"ta": True, "tb": True}),
+        # one output, so however the launcher splits K (at most 256 ways) each
+        # register takes more than SAFE_CHUNK positive products, across many
+        # chunks of BK
+        ("fp32 K past 256 x SAFE_CHUNK, positive", (1, 1, 256 * SAFE_CHUNK + 37, 2), FP32,
+         P91, {"positive": True}),
     ]
     for site, (B, M, Kd, N) in SITES.items():
         kw = ({"b_scale": Kd ** -0.5, "bcast": True} if site in weight_sites
@@ -301,10 +363,89 @@ def main() -> None:
         err = (got - want).abs().max().item()
         if not torch.equal(got, want):
             fail(f"kernel != plain for {name} {(B, M, Kd, N)}: max |diff| {err}")
-        extra = f", {n_saturated(got, spec)} outputs saturated" if spec is SAT else ""
+        saturating = spec.overflow_mode == "saturate"
+        extra = f", {n_saturated(got, spec)} outputs saturated" if saturating else ""
+        ka, _, lay = K.dense_plan(a, b, spec.num_limbs, sms)
+        folded = ka is not a
+        rows = ka.shape[1]
+        bm, bn, bk = lay.tile
+        if kw.get("bcast") and folded == kw.get("ta", False):
+            fail(f"{name}: dense_plan folded: {folded}")
+        if lay.tm > 1 and lay.tm >= 2 * rows:
+            fail(f"{name}: a thread owns {lay.tm} rows of a call with {rows}")
+        if name.startswith("fp32 tiles ragged") and not (rows % bm and N % bn and Kd % bk):
+            fail(f"{name}: tile {lay.tile} divides {(rows, N, Kd)}")
+        # K slice 0 takes bks k of every chunk of bk, and the first of the last
+        first_slice = Kd // bk * lay.bks + min(lay.bks, Kd % bk)
+        if "SAFE_CHUNK" in name and first_slice <= SAFE_CHUNK:
+            fail(f"{name}: K slice 0's registers take only {first_slice} products")
         max_err = max(max_err, err)
         log(f"kernel == plain (torch.equal): {name} {(B, M, Kd, N)} "
-            f"{fmt.name} {spec.describe()}{extra}")
+            f"{fmt.name} {spec.describe()}{extra}; capacity {lay.lc}, "
+            f"{'folded to ' + str((1, rows, Kd)) + ', ' if folded else ''}"
+            f"tile {lay.tile}, {lay.tm}x{lay.tn} outputs a thread, K split {lay.ks}")
+
+    # the full-width dbrx training LM head forward: whole, against the plain
+    # version on its first 64 columns
+    dcfg = get_config("dbrx-132b")
+    head_a, head_b = operands(1, TRAIN_BATCH * TRAIN_SEQ, dcfg.d_model, dcfg.padded_vocab, FP32,
+                              b_scale=dcfg.d_model ** -0.5)
+    got = K.fdp_gemm(head_a, head_b, spec=P91, fmt=FP32)[..., :64]
+    want = K.fdp_gemm_plain(head_a, head_b[..., :64], spec=P91, fmt=FP32)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"kernel != plain at the training LM head forward's first 64 columns: max "
+             f"|diff| {(got - want).abs().max().item()}")
+    log(f"kernel == plain (torch.equal): dbrx-132b training LM head forward "
+        f"{tuple(head_a.shape)} @ {tuple(head_b.shape)} on its first 64 columns")
+    del got, want
+
+    # the dense kernel's times at the main path's shapes, at 91 bits and at
+    # <9,6,-20> on the same inputs, beside the bound (at the small shapes a
+    # call's host work outlasts its kernel, so the CUDA-event time there is
+    # the host's; kernels.dense_times reads device times); the log line also
+    # quotes the time of the earlier dense kernel (one thread column an
+    # output, limbs placed by compare-and-select) from PERF.md section 6,
+    # which this run did not measure and the JSON line does not hold
+    def dense_timed(name, a, b, reps, earlier_ms=None, call=None):
+        call = call or (lambda spec: K.fdp_gemm(a, b, spec=spec, fmt=FP32))
+        B, M, Kd = a.shape[-3:] if a.ndim == 3 else (1, *a.shape)
+        N = b.shape[-1]
+        w_elems = Kd * N * (1 if b.ndim == 2 or b.stride(0) == 0 else B)
+        ops_n = K.int32_ops(B * M * Kd, w_elems, B * M * Kd * N)
+        r = {"shape": [B, M, Kd, N], "ms": cuda_ms(torch, lambda: call(P91), reps=reps),
+             "ms_fig3": cuda_ms(torch, lambda: call(F3), reps=reps),
+             **bound(4 * (B * M * Kd + w_elems + B * M * N), ops_n)}
+        log(f"dense kernel at {name} {tuple(r['shape'])}: {P91.describe()} {r['ms']:.4f} ms "
+            f"= {100 * r['bound_ms'] / r['ms']:.1f}% of its bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); {F3.describe()} {r['ms_fig3']:.4f} ms = "
+            f"{r['ms_fig3'] / r['ms']:.3f}x; the earlier dense kernel: "
+            + (f"{earlier_ms} ms (PERF.md section 6)" if earlier_ms
+               else "not timed"))
+        return r
+
+    dense = {"dbrx train lm_head forward": dense_timed(
+        "dbrx train lm_head forward", head_a, head_b, reps=2)}
+    del head_a, head_b
+    for name, (B, M, Kd, N), bcast, earlier in (
+            ("qwen lm_head decode", (BATCH, 1, d, V), True, 3.6734),
+            ("qwen mlp_in decode", (BATCH, 1, d, f), True, 0.0995),
+            ("qwen mlp_in prefill", (BATCH, PROMPT, d, f), True, 1.2052),
+            ("bench hot shape", (1, 256, 1024, 256), False, 0.4386)):
+        a, b = operands(B, M, Kd, N, FP32, b_scale=Kd ** -0.5, bcast=bcast)
+        dense[name] = dense_timed(name, a, b, reps=20 if N > 10 ** 5 else 50,
+                                  earlier_ms=earlier)
+    # attention at decode: a few rows a head group (qwen 2, dbrx 6), so a
+    # thread owns fewer rows than its capacity's most
+    for model in ("qwen3-0.6b", "dbrx-132b"):
+        acfg = get_config(model)
+        ag, abkh = acfg.n_heads // acfg.n_kv_heads, BATCH * acfg.n_kv_heads
+        for site, (Kd, N) in (("attn_qk", (acfg.head_dim, smax)),
+                              ("attn_av", (smax, acfg.head_dim))):
+            name = f"{model.split('-')[0]} {site} decode"
+            a, b = operands(abkh, ag, Kd, N, FP32)
+            dense[name] = dense_timed(name, a, b, reps=50)
+    torch.cuda.empty_cache()
 
     # dbrx-132b at full width: the router is a 2-D call, (T, d) @ (d, E)
     mcfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_LAYERS)
@@ -317,14 +458,15 @@ def main() -> None:
     if not torch.equal(got, want):
         fail(f"2-D kernel != plain at the router shape: max |diff| "
              f"{(got - want).abs().max().item()}")
-    router = {"shape": [BATCH, md, mE],
-              "ms": cuda_ms(torch, lambda: ops.fdp_gemm(ra, rb, spec=P91, fmt=FP32), reps=50),
+    router = {**dense_timed("dbrx router (2-D, ops.fdp_gemm)", ra, rb, reps=50,
+                            earlier_ms=0.4091,
+                            call=lambda spec: ops.fdp_gemm(ra, rb, spec=spec, fmt=FP32)),
               "plain_ms": cuda_ms(torch, lambda: K.fdp_gemm_plain(
-                  ra[None], rb[None], spec=P91, fmt=FP32), reps=3),
-              **bound(4 * (BATCH * md + md * mE + BATCH * mE),
-                      K.int32_ops(BATCH * md, md * mE, BATCH * md * mE))}
+                  ra[None], rb[None], spec=P91, fmt=FP32), reps=3)}
+    router["shape"] = [BATCH, md, mE]
+    dense["dbrx router"] = router
     log(f"kernel == plain (torch.equal): router 2-D {(BATCH, md)} @ {(md, mE)} "
-        f"through ops.fdp_gemm (N = {mE} < the kernel's 32-column tile)")
+        f"through ops.fdp_gemm")
 
     def routed_sizes(tokens: int, seed: int) -> list:
         """Group sizes of top-k routing with each token's k experts drawn at
@@ -689,21 +831,22 @@ def main() -> None:
     sizes = torch.tensor(gs_train, dtype=torch.int32, device=dev)
     bwd_checks = {
         # G (B,S,V) @ head^T (V,d) with head^T a transposed view broadcast over B
-        "lm_head@bwd.dA, 32 of 6144 columns": lambda f: f(
+        "lm_head@bwd.dA, 32 of 6144 columns": (
             g_logits, head.T[:, :32].expand(TRAIN_BATCH, mV, 32)),
         # the flattened h^T (d,T) @ G (T,V), a transposed view, 64 of V columns
-        "lm_head@bwd.dB, 64 columns": lambda f: f(
+        "lm_head@bwd.dB, 64 columns": (
             h.reshape(-1, md).T[None], g_logits.reshape(-1, mV)[None, :, :64]),
-        "moe_router@bwd.dB (2-D, whole)": lambda f: f(x_tok.T[None], g_router[None]),
+        "moe_router@bwd.dB (2-D, whole)": (x_tok.T[None], g_router[None]),
     }
-    for name, call in bwd_checks.items():
-        want = call(lambda a, b: K.fdp_gemm_plain(a, b, spec=P91, fmt=FP32))
-        got = call(lambda a, b: K.fdp_gemm(a, b, spec=P91, fmt=FP32))
+    for name, (a, b) in bwd_checks.items():
+        want = K.fdp_gemm_plain(a, b, spec=P91, fmt=FP32)
+        got = K.fdp_gemm(a, b, spec=P91, fmt=FP32)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"dense kernel != plain at {name}: max |diff| {(got - want).abs().max().item()}")
         max_err = max(max_err, (got - want).abs().max().item())
         log(f"dense kernel == plain (torch.equal): {name}")
+        dense[name] = dense_timed(name, a, b, reps=5)
     w_t = w_in.transpose(-1, -2)[:, :, :64]              # (E, f, 64 of d), strided
     want = K.fdp_ragged_gemm_plain(g_moe, w_t, sizes, spec=P91, fmt=FP32)
     got = K.fdp_ragged_gemm(g_moe, w_t, sizes, spec=P91, fmt=FP32)
@@ -906,7 +1049,6 @@ def main() -> None:
     del runs
 
     # -- 12. the seed-order kernel (impl="loop") against plain and vector ------
-    F3 = AccumulatorSpec(ovf=9, msb=6, lsb=-20)          # the paper's Fig.-3 pick
     SEED_TILE = D.GemmPlan(32, 32, 128)
 
     def operands_2d(M, Kd, N, fmt, a_scale=1.0, b_scale=1.0, positive=False,
@@ -1180,6 +1322,7 @@ def main() -> None:
         "bound_by": lm["bound_by"], "library_ms": None,
         "at": f"qwen3-0.6b lm_head {tuple(lm['shape'])} fp32 {P91.describe()}",
         "mlp_in": mi, "router_2d": {**router, "launches": dbrx["calls"]["moe_router"]},
+        "dense_shapes": dense, "sass": sass,
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"],
     }, {

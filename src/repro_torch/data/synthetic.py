@@ -3,12 +3,15 @@
 
 Each (shard, step) batch is a pure function of (seed, step, shard_index):
 restart-reproducible with no iterator state to checkpoint. The token
-stream has the reference's structure, a hashed bigram with 25% noise, but
-the port draws its random first tokens and noise from a seeded
-``torch.Generator`` where the reference uses ``jax.random``, so the two
-packages give different tokens for the same seed. Tests that compare them
-feed the same numpy batch to both. The reference's prefetching iterator is
-left out: batches are cheap next to a step, and no caller needs it.
+stream is the reference's hashed bigram with 25% noise, and the bigram
+transition (``bigram_next``) is the reference's to the bit: the hash wraps
+in int32 as the reference's int32 arrays do. The port draws its random
+first tokens and noise from a seeded ``torch.Generator`` where the
+reference uses ``jax.random``, so the two packages still give different
+batches for the same seed: the same transition from the same token, other
+draws. Tests that compare whole batches feed the same numpy batch to both.
+The reference's prefetching iterator is left out: batches are cheap next
+to a step, and no caller needs it.
 """
 
 from __future__ import annotations
@@ -17,6 +20,19 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """Two's-complement wrap of int64 values to the signed int32 range."""
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def bigram_next(prev: torch.Tensor, mix: int, vocab_size: int) -> torch.Tensor:
+    """The deterministic bigram transition ``(prev * mix + 12345) % v`` as
+    the reference forms it on int32 arrays: the product and the sum wrap to
+    signed int32, then the floor modulo maps into [0, v)."""
+    h = _wrap_int32(_wrap_int32(prev.to(torch.int64) * mix) + 12345)
+    return h % vocab_size
 
 
 @dataclasses.dataclass
@@ -63,7 +79,7 @@ class SyntheticLM:
         prev, toks = first, []
         for n in noise:
             # deterministic bigram: next = hash(prev), with 25% noise
-            tok = torch.where(n % 4 == 0, n, (prev * self._mix + 12345) % v)
+            tok = torch.where(n % 4 == 0, n, bigram_next(prev, self._mix, v))
             toks.append(tok)
             prev = tok
         targets = torch.stack(toks, dim=1)

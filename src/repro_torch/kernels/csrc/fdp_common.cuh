@@ -1,9 +1,11 @@
-// Device math shared by the FDP kernels (fdp_gemm.cu, fdp_ragged_gemm.cu):
-// decode to (sign, mant, exp), exact product entry into int32 limbs, carry
-// normalization, the W-bit wrap/saturate read-out with one RNE rounding to
-// f32, and the contraction of one output column with K split over
-// K_SLICES threads. Bit-identical to repro.core.fdp.fdp_gemm for every
-// format, round mode and overflow mode.
+// Device math shared by the FDP kernels: decode to (sign, mant, exp), exact
+// product entry into int32 limbs, carry normalization, the W-bit
+// wrap/saturate read-out with one RNE rounding to f32, and the contraction
+// of one output column with K split over K_SLICES threads (the
+// sorted-segment kernels and the seed-order kernel); then the word register
+// of the dense kernel (fdp_gemm.cu), read out through the same to_float.
+// Bit-identical to repro.core.fdp.fdp_gemm for every format, round mode and
+// overflow mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -303,6 +305,169 @@ cudaError_t dispatch_limbs(int num_limbs, Args... args) {
   if (num_limbs <= 32) return Launch<32>::run(args...);
   if (num_limbs <= 40) return Launch<40>::run(args...);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The word register (the dense kernel, fdp_gemm.cu): the register as one
+// two's-complement integer of NW 32-bit words, every product added with the
+// hardware carry chain, so no carry is ever pending. A register of L limbs
+// is exact modulo 2^(16(L-1) + 32) (limbs 0..L-2 of 16 bits and the 32-bit
+// top limb), so NW = LC/2 + 1 words hold any L <= LC; its low PW = LC/2
+// words cover the limb window [0, 16 LC) that a product may reach.
+// ---------------------------------------------------------------------------
+
+// acc[0..N) += x[0..N) + (c != 0) in one carry chain, returning the carry
+// out (0 or 1) when COUT. A carry crosses asm statements only through a
+// register, so a chain is at most four words.
+template <int N, bool COUT>
+__device__ __forceinline__ uint32_t add_chunk(uint32_t* acc, const uint32_t* x,
+                                              uint32_t c);
+
+#define FDP_CARRY_IN(c) "{\n\t.reg .u32 t;\n\tadd.cc.u32 t, %" #c ", 0xFFFFFFFF;\n\t"
+template <>
+__device__ __forceinline__ uint32_t add_chunk<1, false>(uint32_t* a, const uint32_t* x,
+                                                        uint32_t c) {
+  asm(FDP_CARRY_IN(2) "addc.u32 %0, %0, %1;\n\t}"
+      : "+r"(a[0]) : "r"(x[0]), "r"(c));
+  return 0u;
+}
+template <>
+__device__ __forceinline__ uint32_t add_chunk<2, false>(uint32_t* a, const uint32_t* x,
+                                                        uint32_t c) {
+  asm(FDP_CARRY_IN(4)
+      "addc.cc.u32 %0, %0, %2;\n\taddc.u32 %1, %1, %3;\n\t}"
+      : "+r"(a[0]), "+r"(a[1]) : "r"(x[0]), "r"(x[1]), "r"(c));
+  return 0u;
+}
+template <>
+__device__ __forceinline__ uint32_t add_chunk<3, false>(uint32_t* a, const uint32_t* x,
+                                                        uint32_t c) {
+  asm(FDP_CARRY_IN(6)
+      "addc.cc.u32 %0, %0, %3;\n\taddc.cc.u32 %1, %1, %4;\n\taddc.u32 %2, %2, %5;\n\t}"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]) : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(c));
+  return 0u;
+}
+template <>
+__device__ __forceinline__ uint32_t add_chunk<4, false>(uint32_t* a, const uint32_t* x,
+                                                        uint32_t c) {
+  asm(FDP_CARRY_IN(8)
+      "addc.cc.u32 %0, %0, %4;\n\taddc.cc.u32 %1, %1, %5;\n\t"
+      "addc.cc.u32 %2, %2, %6;\n\taddc.u32 %3, %3, %7;\n\t}"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(c));
+  return 0u;
+}
+template <>
+__device__ __forceinline__ uint32_t add_chunk<4, true>(uint32_t* a, const uint32_t* x,
+                                                       uint32_t c) {
+  uint32_t out = 0u;
+  asm(FDP_CARRY_IN(9)
+      "addc.cc.u32 %0, %0, %5;\n\taddc.cc.u32 %1, %1, %6;\n\t"
+      "addc.cc.u32 %2, %2, %7;\n\taddc.cc.u32 %3, %3, %8;\n\taddc.u32 %4, %4, 0;\n\t}"
+      : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(out)
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(c));
+  return out;
+}
+#undef FDP_CARRY_IN
+
+// acc += x + (c != 0) over all NW words (two's complement, modulo 2^(32 NW)).
+template <int NW>
+__device__ __forceinline__ void add_words(uint32_t (&acc)[NW], const uint32_t (&x)[NW],
+                                          uint32_t c) {
+  constexpr int FULL = (NW - 1) / 4;               // chunks of 4 before the last
+#pragma unroll
+  for (int i = 0; i < FULL; ++i) c = add_chunk<4, true>(acc + 4 * i, x + 4 * i, c);
+  add_chunk<NW - 4 * FULL, false>(acc + 4 * FULL, x + 4 * FULL, c);
+}
+
+// Bits of a 64-bit value as PTX shifts them: an amount past the width
+// (unsigned, so a negative int is one) gives 0.
+__device__ __forceinline__ uint32_t shr64_lo(uint64_t x, int d) {
+  uint32_t r;
+  asm("{\n\t.reg .b64 t;\n\tshr.b64 t, %1, %2;\n\tcvt.u32.u64 %0, t;\n\t}"
+      : "=r"(r) : "l"(x), "r"(d));
+  return r;
+}
+__device__ __forceinline__ uint64_t shl64(uint64_t x, int d) {
+  uint64_t r;
+  asm("shl.b64 %0, %1, %2;" : "=l"(r) : "l"(x), "r"(d));
+  return r;
+}
+__device__ __forceinline__ uint32_t shl32(uint32_t x, int d) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(d));
+  return r;
+}
+
+// The RNE increment of a product m at grid offset q, as add_product forms
+// it (guard = bit -1 on the grid, sticky = OR of the bits below it, lsb =
+// bit 0; bits of m >= 48 read as 0), without branches: m < 2^48, so a bit
+// index past 47 reads 0, and where the sticky shift is out of range the
+// guard is 0.
+__device__ __forceinline__ uint32_t rne_increment(uint64_t m, int q) {
+  const int pg = -1 - q;
+  const uint32_t guard = shr64_lo(m, pg) & 1u;
+  const uint32_t lsb_bit = shr64_lo(m, -q) & 1u;
+  const uint32_t sticky = shl64(m, 64 - pg) != 0ull;
+  return guard & (sticky | lsb_bit);
+}
+
+// Word masks of the limb window [0, 16 L): a product's bits at or above limb
+// L are dropped, as add_product drops its pieces above limb L-1.
+template <int PW>
+__device__ __forceinline__ void window_masks(uint32_t (&mask)[PW], int L) {
+#pragma unroll
+  for (int j = 0; j < PW; ++j) {
+    int bits = min(max(16 * L - 32 * j, 0), 32);
+    mask[j] = bits == 32 ? 0xFFFFFFFFu : (1u << bits) - 1u;
+  }
+}
+
+// Enter one exact product into the word register: m = ma * mb at grid offset
+// q = ea + eb - lsb, truncated below grid bit 0 (no word below word 0 is
+// formed) or RNE, then negated when smask (0 or ~0, the XOR of the operands'
+// signs) says so: acc += (v ^ smask) + (sign XOR inc). Window word j is
+// bits [32j, 32j + 32) of m * 2^q: m >> (32j - q) where that amount is >= 0,
+// (m mod 2^32) << (q - 32j) where it is > 0; each shift gives 0 where the
+// other applies, so placement is two shifts and a LOP3 a word, no select.
+// MASKED cuts v to the window [0, 16 L) (add_product drops the pieces above
+// limb L-1): only a saturating register with L < LC reads those bits (its
+// top limb's full 32 bits); a wrapping one keeps bits below W <= 16 L, which
+// the bits above never reach.
+template <int NW, bool RNE, bool MASKED>
+__device__ __forceinline__ void add_product_words(uint32_t (&acc)[NW],
+                                                  const uint32_t (&mask)[NW - 1],
+                                                  uint32_t ma, uint32_t mb, int q,
+                                                  uint32_t smask) {
+  constexpr int PW = NW - 1;
+  const uint64_t m = (uint64_t)ma * (uint64_t)mb;  // < 2^48
+  const uint32_t lo = (uint32_t)m;
+  uint32_t x[NW];
+#pragma unroll
+  for (int j = 0; j < PW; ++j) {
+    uint32_t v = shr64_lo(m, 32 * j - q) | shl32(lo, q - 32 * j);
+    if (MASKED) v &= mask[j];
+    x[j] = v ^ smask;
+  }
+  x[PW] = smask;
+  uint32_t c = smask;
+  if (RNE) c ^= 0u - rne_increment(m, q);
+  add_words<NW>(acc, x, c);
+}
+
+// The word register as normalized limbs for to_float: limbs 0..L-2 are its
+// 16-bit digits, limb L-1 the 32 bits from 16 (L-1) (the full signed
+// remainder, wrapped), limbs past L zero.
+template <int LC>
+__device__ __forceinline__ void words_to_limbs(const uint32_t (&acc)[LC / 2 + 1], int L,
+                                               uint32_t (&limb)[LC]) {
+#pragma unroll
+  for (int l = 0; l < LC; ++l) {
+    const uint32_t w0 = acc[l >> 1];
+    const uint32_t digit = (l & 1) ? w0 >> 16 : w0 & LIMB_MASK;
+    const uint32_t top = (l & 1) ? __funnelshift_r(w0, acc[(l >> 1) + 1], 16) : w0;
+    limb[l] = l < L - 1 ? digit : l == L - 1 ? top : 0u;
+  }
 }
 
 }  // namespace fdp

@@ -1,7 +1,7 @@
 """The exact <ovf,msb,lsb> FDP GEMM kernels, hand-written for Hopper.
 
 ``fdp_gemm(a, b, spec=..., fmt=...)`` computes ``(B, M, K) @ (B, K, N) ->
-(B, M, N)`` f32 with every product entered exactly into an int32-limb
+(B, M, N)`` f32 with every product entered exactly into a fixed-point
 register and one rounding per output. It replaces the Pallas body
 ``repro/kernels/fdp_gemm.py:fdp_gemm_kernel``, reached there through
 ``fdp_gemm_pallas_batched`` (every N-D call) and ``fdp_gemm_pallas`` (2-D
@@ -29,21 +29,35 @@ zeros for a zero-size group. It replaces the Pallas body
 finds its group's row window from the group sizes on the device.
 
 What bounds all four on the card: int32 CUDA-core operations per exact product
-(form the 48-bit significand product, align it to the grid, add four
-16-bit pieces into the limbs), not bytes and not the tensor cores, which
-have no exact wide-integer accumulate. The simple design (``csrc/``; the
-device math is ``csrc/fdp_common.cuh``, shared by all four kernels) keeps each
-output's limbs in registers, so the placement is compare-and-select over a
-compile-time number of limbs with no local-memory traffic. The two forward
-kernels split K over eight threads per output, whose registers are summed
-exactly in shared memory, so that decode shapes (M = 1, or 16 expert rows)
-still fill the card; the weight-gradient kernel, whose K is a group's few
-rows and whose outputs number E*d*f, and the seed-order kernel, whose
-point is the per-k order, give each output one thread. They spend more
-operations than the function needs: both operands are decoded per product
-and every limb is selected per product. ``int32_ops``
-counts what the function needs, whatever the design; ``chip_smoke.py``
-turns that count into the bound it reports.
+(form the 48-bit significand product, align it to the grid, add it into the
+register), not bytes and not the tensor cores, which have no exact
+wide-integer accumulate. ``int32_ops`` counts what the function needs,
+whatever the design; ``chip_smoke.py`` turns that count into the bound it
+reports.
+
+The dense kernel (``csrc/fdp_gemm.cu``) spends close to that count. A block
+decodes each operand element of its tiles once into shared memory; each
+thread owns several outputs (4 x 2 up to 8 limbs, fewer rows where the call
+has fewer), so a decoded element serves several products; the register is
+a two's-complement integer of 32-bit words (``DENSE_CAPACITIES``: 2 to 40
+limbs, so a narrow register costs less), and a product enters it with two
+shifts a word and one add-with-carry chain, with no carry pending at any
+time. ``dense_launch`` picks the capacity, the rows a thread owns, the
+thread layout and the K split, the least costly by a model fitted to the
+kernel's device times (``dense_cost``), and ``dense_plan`` folds a weight
+broadcast over the batch into the rows (``fold_broadcast``) so that it is
+read once. The tile table is ``csrc/fdp_gemm_tiles.def``, which the kernel
+includes and ``dense_launch`` reads.
+
+The other three still spend more operations than the function needs: the
+sorted-segment forward and the weight gradient (whose device math is the
+limb register of ``csrc/fdp_common.cuh``) decode both operands per product
+and place each product by compare-and-select over every limb, from 6
+limbs up; the forward splits K over eight threads per output, summed exactly
+in shared memory, so that 16 expert rows fill the card, and the weight
+gradient, whose K is a group's few rows and whose outputs number E*d*f,
+gives each output one thread. The seed-order kernel keeps the seed's
+per-k order on purpose, one thread per output.
 
 On CPU tensors the wrappers run the plain PyTorch versions
 (``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``, ``fdp_ragged_dw_plain``: the
@@ -57,8 +71,12 @@ it), and bound through ctypes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
+import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -74,13 +92,41 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC")
-MAX_LIMBS = 40          # the widest instantiation in csrc/fdp_common.cuh
+MAX_LIMBS = 40          # the widest instantiation of every kernel
+
+
+def _dense_table() -> tuple:
+    """The dense kernel's table, read from its one copy,
+    ``csrc/fdp_gemm_tiles.def`` (which the kernel includes): ``({capacity:
+    (most rows, columns) of outputs a thread owns}, {capacity: blocks a
+    multiprocessor holds at once}, shared-memory limit in bytes)``."""
+    text = (_CSRC / "fdp_gemm_tiles.def").read_text()
+    rows = [tuple(map(int, m)) for m in re.findall(
+        r"^FDP_DENSE_TILE\(\s*(\d+),\s*(\d+),\s*(\d+),\s*(\d+)\)", text, re.M)]
+    limit = re.search(r"^FDP_DENSE_SMEM_LIMIT\((\d+)\)", text, re.M)
+    return ({lc: (tm, tn) for lc, tm, tn, _ in rows},
+            {lc: blocks for lc, _, _, blocks in rows}, int(limit.group(1)))
+
+
+# The dense kernel (csrc/fdp_gemm.cu): its register capacities in limbs; at
+# each capacity the most rows and the columns of outputs a thread owns and
+# the blocks a multiprocessor holds at once; the shared memory a block may
+# take. 256 threads a block.
+DENSE_TILE, DENSE_RESIDENT, DENSE_SMEM_LIMIT = _dense_table()
+DENSE_CAPACITIES = tuple(sorted(DENSE_TILE))
+DENSE_THREADS = 256
+# dense_cost's weights, in units of one product into a 4-word (6-limb)
+# register: a product's register word, a decoded operand element, an output
+# word summed at one level of the K split's tree, a level's barrier, a chunk
+# of K (its two barriers). Fitted to the kernel's device times over every
+# layout at the main path's shapes on an H100 (dense_times --sweep).
+_WORD, _DECODE, _TREE_WORD, _LEVEL, _CHUNK = 0.25, 5.7, 0.8125, 1.4, 13.2
 # C entry point and ctypes argument types of each kernel library, by source
 # stem (csrc/<stem>.cu).
 _ENTRIES = {
     "fdp_gemm": ("fdp_gemm_launch",
                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 6
-                 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+                 + [ctypes.c_int] * 14 + [ctypes.c_void_p]),
     "fdp_gemm_looped": ("fdp_gemm_looped_launch",
                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 4
                         + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
@@ -216,6 +262,143 @@ def _check_device(*tensors: torch.Tensor) -> str:
     return dev.type
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseLaunch:
+    """One launch of the dense kernel: register capacity ``lc`` (limbs), the
+    thread layout (``tx`` columns x ``ty`` rows x ``ks`` K slices = 256
+    threads, each thread owning ``tm`` x ``tn`` outputs) and ``bks``, the k
+    each slice takes from a chunk of ``bk = ks * bks``."""
+
+    lc: int
+    tm: int
+    tn: int
+    tx: int
+    ty: int
+    ks: int
+    bks: int
+
+    @property
+    def words(self) -> int:
+        """32-bit words of the register: LC/2 + 1 hold any L <= LC limbs."""
+        return self.lc // 2 + 1
+
+    @property
+    def tile(self) -> tuple:
+        """The block's (BM, BN, BK)."""
+        return self.ty * self.tm, self.tx * self.tn, self.ks * self.bks
+
+    def grid(self, batch: int, rows: int, cols: int) -> tuple:
+        bm, bn, _ = self.tile
+        return -(-cols // bn), -(-rows // bm), batch
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, math.ceil(math.log2(max(x, 1))))
+
+
+def dense_layouts(num_limbs: int, rows: int, cols: int, depth: int):
+    """Every launch of the dense kernel worth weighing for a (rows, depth) @
+    (depth, cols) call at ``num_limbs`` limbs: the smallest capacity that
+    holds them; a thread tile of its TM rows, or TM/2 or TM/4; 256 threads
+    as tx columns x ty (at most 8) rows x ks K slices, powers of two; bks k
+    a slice a chunk (1 to 32). A block tile no larger than the call's rows,
+    columns and depth rounded up to powers of two, save one thread's columns
+    and one k a slice; decoded tiles within DENSE_SMEM_LIMIT."""
+    if not 1 <= num_limbs <= MAX_LIMBS:
+        raise ValueError(f"{num_limbs} limbs: the dense kernel holds 1..{MAX_LIMBS}")
+    lc = next(c for c in DENSE_CAPACITIES if c >= num_limbs)
+    tm_max, tn = DENSE_TILE[lc]
+    rows2, cols2, depth2 = _pow2_at_least(rows), _pow2_at_least(cols), _pow2_at_least(depth)
+    for tm in sorted({tm_max, max(1, tm_max // 2), max(1, tm_max // 4)}, reverse=True):
+        for ty in (1, 2, 4, 8):
+            if ty * tm > rows2:
+                continue
+            for tx in (1 << i for i in range(9)):
+                if tx * ty > DENSE_THREADS or tx * tn > max(tn, cols2):
+                    continue
+                ks = DENSE_THREADS // (tx * ty)
+                for bks in (32, 16, 8, 4, 2, 1):
+                    if (bks > 1 and ks * bks > depth2) \
+                            or (ty * tm + tx * tn) * ks * bks * 8 > DENSE_SMEM_LIMIT:
+                        continue
+                    yield DenseLaunch(lc, tm, tn, tx, ty, ks, bks)
+
+
+def dense_cost(lay: DenseLaunch, batch: int, rows: int, cols: int, depth: int,
+               sms: int) -> float:
+    """The time ``lay`` takes, in units of one product into a 4-word
+    register: the waves of blocks the card runs (DENSE_RESIDENT blocks on
+    each of ``sms`` multiprocessors at once) times a thread's work, its
+    products (their words), its share of decoding the tiles, its K split's
+    summing tree and its chunks. A model, fitted to device times; the
+    launcher only compares it across layouts."""
+    bm, bn, bk = lay.tile
+    blocks = batch * -(-rows // bm) * -(-cols // bn)
+    waves = -(-blocks // (sms * DENSE_RESIDENT[lay.lc]))
+    chunks = -(-depth // bk)
+    levels = math.log2(lay.ks)
+    outputs = lay.tm * lay.tn
+    work = (_WORD * lay.words * chunks * lay.bks * outputs
+            + _DECODE * chunks * (bm + bn) * bk / DENSE_THREADS
+            + _TREE_WORD * lay.words * levels * outputs + _LEVEL * levels + _CHUNK * chunks)
+    return waves * work
+
+
+@functools.lru_cache(maxsize=4096)
+def dense_launch(num_limbs: int, batch: int, rows: int, cols: int, depth: int,
+                 sms: int) -> DenseLaunch:
+    """The dense kernel's launch for a (batch, rows, depth) @ (batch, depth,
+    cols) call at ``num_limbs`` limbs on a card of ``sms`` multiprocessors:
+    of ``dense_layouts``, the one of least ``dense_cost``; on a tie, the one
+    with more rows a thread, then the smaller K split, then the deeper
+    chunk."""
+    return min(dense_layouts(num_limbs, rows, cols, depth),
+               key=lambda lay: (dense_cost(lay, batch, rows, cols, depth, sms), -lay.tm,
+                                lay.ks, -lay.bks))
+
+
+def fold_broadcast(a: torch.Tensor, b: torch.Tensor):
+    """``(a', b')`` = a view of ``a`` as ``(1, B*M, K)`` and ``b[:1]`` when the
+    weight ``b`` is broadcast over the batch (batch stride 0) and ``a``'s
+    batch and rows merge into one dimension without a copy; else None. The
+    folded call computes the same outputs, viewed back as (B, M, N), and
+    reads the weight once."""
+    if a.shape[0] < 2 or b.stride(0) != 0:
+        return None
+    try:
+        folded = a.view(1, a.shape[0] * a.shape[1], a.shape[2])
+    except RuntimeError:                          # the strides do not merge
+        return None
+    return folded, b[:1]
+
+
+_GRID_ROWS = 65535          # the kernel grid's limit on row tiles and on batch
+
+
+def dense_plan(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int) -> tuple:
+    """``(a', b', launch)``: the operands as the dense kernel takes them
+    and its ``dense_launch``. The call is folded (``fold_broadcast``) where
+    it folds and the folded rows fit the grid's 65535 row tiles; else it is
+    launched as given (B and M each within the grid, or ValueError)."""
+    folded = fold_broadcast(a, b)
+    if folded is not None:
+        fa, fb = folded
+        lay = dense_launch(num_limbs, 1, fa.shape[1], fb.shape[2], fa.shape[2], sms)
+        if lay.grid(1, fa.shape[1], fb.shape[2])[1] <= _GRID_ROWS:
+            return fa, fb, lay
+    Bn, M, K = a.shape
+    lay = dense_launch(num_limbs, Bn, M, b.shape[2], K, sms)
+    if lay.grid(Bn, M, b.shape[2])[1] > _GRID_ROWS or Bn > _GRID_ROWS:
+        raise ValueError(f"batch {Bn} or rows {M} exceed the kernel grid ({_GRID_ROWS} "
+                         f"tiles of {lay.tile[0]} rows, {_GRID_ROWS} batch elements)")
+    return a, b, lay
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fdp_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
                    fmt) -> torch.Tensor:
     """The kernel's plain PyTorch version: ``core.fdp.fdp_gemm`` per batch
@@ -232,10 +415,12 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
     """(B,M,K) @ (B,K,N) -> (B,M,N) f32 through the exact FDP datapath.
 
     ``a`` and ``b`` may have any strides, 0 included (a broadcast weight
-    needs no copy). Float formats take float tensors (read as f32, as the
-    reference decodes them); posit formats take int32 bit patterns. CPU
-    tensors run ``fdp_gemm_plain``; CUDA tensors launch the kernel (counted
-    in ``fdp_gemm.launches``)."""
+    needs no copy, and is folded into the rows so that the kernel reads it
+    once: ``dense_plan``). Float formats take float tensors (read as
+    f32, as the reference decodes them); posit formats take int32 bit
+    patterns. CPU tensors run ``fdp_gemm_plain``; CUDA tensors launch the
+    kernel (counted in ``fdp_gemm.launches``) with ``dense_launch``'s
+    layout for the card's multiprocessor count."""
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(f"fdp_gemm expects (B,M,K) @ (B,K,N), got "
@@ -245,23 +430,25 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
     if on == "cpu":
         return fdp_gemm_plain(a, b, spec=spec, fmt=fmt)
     numerics = _numerics_args(spec, fmt)
+    shape = (a.shape[0], a.shape[1], b.shape[2])
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    a, b, lay = dense_plan(a, b, spec.num_limbs, _sm_count(index))
     Bn, M, K = a.shape
     N = b.shape[2]
-    if M > 65535 or Bn > 65535:
-        raise ValueError(f"batch {Bn} or rows {M} exceed the kernel grid (65535)")
     out = torch.empty((Bn, M, N), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
-        return out
+        return out.view(shape)
     lib = load()["fdp_gemm"]
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         err = lib.fdp_gemm_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), Bn, M, N, K,
-            *a.stride(), *b.stride(), *numerics, stream)
+            *a.stride(), *b.stride(), *numerics, lay.lc, lay.tm, lay.tx, lay.ty,
+            lay.ks, lay.bks, stream)
     if err != 0:
         raise RuntimeError(f"fdp_gemm kernel launch failed: cudaError {err}")
     _count(fdp_gemm)
-    return out
+    return out.view(shape)
 
 
 fdp_gemm.launches = 0

@@ -4,9 +4,11 @@ last both forward and weight gradient).
 
 Every entry point takes ``plan: GemmPlan | None`` as the reference's
 GemmPlan-first API does, and a given plan is checked through
-``resolve_plan``. The vector kernels' tile is fixed (``csrc/``), so no plan
-changes their launch; the seed-order kernel of ``fdp_gemm(impl="loop")``
-takes its block tile and carry cadence from the fitted plan. Every kernel
+``resolve_plan``. No plan changes the vector kernels' launch: the dense
+kernel picks its layout from the shape and register width
+(``fdp_gemm.dense_launch``), the sorted-segment ones have a fixed tile; the
+seed-order kernel of ``fdp_gemm(impl="loop")`` takes its block tile and
+carry cadence from the fitted plan. Every kernel
 masks ragged edges itself, so no operand is padded.
 """
 

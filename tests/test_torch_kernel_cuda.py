@@ -26,8 +26,10 @@ def test_kernel_bit_equal_to_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator().manual_seed(0)
-    # the last case gives each of the kernel's 8 K-slices more than
-    # SAFE_CHUNK products, so carries also normalize inside its K loop
+    # the last case runs K past 8 x SAFE_CHUNK, the carry cadence of the
+    # limb registers (the dense kernel's word register carries at every
+    # product; test_dense_kernel_registers_tiles_and_strides_on_card holds
+    # one register to more than SAFE_CHUNK positive products)
     cases = [((3, 5, 70, 9), "ieee_fp32", "paper_91bit"),
              ((2, 17, 300, 33), "bfloat16", "rne"),
              ((2, 4, 64, 40), "posit16_1", "saturate"),
@@ -245,3 +247,103 @@ def test_looped_wrapper_raises_on_a_failed_launch(monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError 1"):
         tk.fdp_gemm_looped(a, b, GemmPlan(8, 8, 8), spec=spec, fmt=tfmt.FP32)
     assert tk.fdp_gemm_looped.launches == before
+
+
+def _dense_case(g, B, M, K, N, tf, ts, *, bcast=False, ta=False, tb=False, scale=1.0,
+                positive=False):
+    a = torch.randn(B, M, K, generator=g) * scale
+    b = torch.randn(1 if bcast else B, K, N, generator=g)
+    if positive:
+        a, b = a.abs(), b.abs()
+    if isinstance(tf, tfmt.PositFormat):
+        a, b = tf.from_float(a), tf.from_float(b)
+    else:
+        a, b = tf.quantize(a), tf.quantize(b)
+    a, b = a.cuda(), b.cuda()
+    if ta:                                               # transposed views
+        a = a.transpose(1, 2).contiguous().transpose(1, 2)
+    if tb:
+        b = b.transpose(1, 2).contiguous().transpose(1, 2)
+    return a, (b.expand(B, K, N) if bcast else b)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_registers_tiles_and_strides_on_card():
+    """The dense kernel against its plain version at capacities 2, 4, 6, 12
+    and more than 24 limbs (one output a thread), saturating registers whose
+    products reach past their top limb (the window mask), thread tiles of
+    1, 2 and 4 rows (calls of 1, 2 and more rows a batch element), tiles
+    ragged in M, N and K, transposed operands, a weight that folds into the
+    rows and one that does not, and one register fed more than SAFE_CHUNK
+    positive products whatever K split the launcher picks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(4)
+    fp32, bf16 = tfmt.get_format("ieee_fp32"), tfmt.get_format("bfloat16")
+    posit = tfmt.get_format("posit16_1")
+    spec = tacc.AccumulatorSpec
+    cases = [
+        ((2, 9, 100, 37), fp32, spec(2, 5, -8), dict(scale=8.0)),               # 1 limb
+        ((2, 9, 100, 37), fp32, spec(2, 3, -8, overflow_mode="saturate"), dict(scale=1e3)),
+        ((3, 17, 150, 45), fp32, spec(9, 6, -20), dict(ta=True, tb=True)),        # 3 limbs
+        ((2, 4, 200, 40), fp32, spec(9, 6, -20, overflow_mode="saturate"), dict(scale=3e6)),
+        ((2, 33, 257, 65), bf16, spec(30, 30, -30, round_mode="rne"), dict(ta=True)),
+        ((1, 37, 170, 29), fp32, spec(100, 200, -100, round_mode="rne"), dict(scale=1e20)),
+        ((2, 5, 70, 9), posit, spec(300, 200, -130), dict(tb=True)),            # 40 limbs
+        ((4, 7, 96, 33), fp32, spec(30, 30, -30), dict(bcast=True)),            # folds
+        ((4, 7, 96, 33), fp32, spec(30, 30, -30), dict(bcast=True, ta=True)),   # does not
+        ((3, 1, 100, 37), fp32, spec(30, 30, -30), dict(tb=True)),              # 1 row
+        ((5, 2, 130, 21), fp32, spec(9, 6, -20, overflow_mode="saturate"),
+         dict(scale=3e6)),                                                       # 2 rows
+        ((3, 1, 90, 19), bf16, spec(60, 60, -60), dict(scale=1e10)),            # 12 limbs
+        ((1, 1, 256 * tacc.SAFE_CHUNK + 37, 2), fp32, spec(30, 30, -30), dict(positive=True)),
+    ]
+    before = tk.fdp_gemm.launches
+    for (B, M, K, N), tf, ts, kw in cases:
+        a, b = _dense_case(g, B, M, K, N, tf, ts, **kw)
+        want = tk.fdp_gemm_plain(a, b, spec=ts, fmt=tf)
+        got = tk.fdp_gemm(a, b, spec=ts, fmt=tf)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got), ((B, M, K, N), tf.name, ts.describe(), kw)
+    assert tk.fdp_gemm.launches == before + len(cases)
+    # slice 0 takes bks k of every chunk of bk, and the first of the last one
+    K = 256 * tacc.SAFE_CHUNK + 37
+    ts = spec(30, 30, -30)
+    lay = tk.dense_launch(ts.num_limbs, 1, 1, 2, K,
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    bk = lay.ks * lay.bks
+    assert K // bk * lay.bks + min(lay.bks, K % bk) > tacc.SAFE_CHUNK
+
+
+@pytest.mark.cuda
+def test_dense_wrapper_raises_on_a_failed_launch(monkeypatch):
+    """The C entry point refuses a thread layout that is not 256 threads, a
+    capacity below the spec's limbs or not in its table, and a thread tile
+    of rows its capacity lacks; the wrapper raises on a non-zero code
+    instead of falling back to the plain version, and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = tacc.AccumulatorSpec(30, 30, -30)
+    a = torch.randn(1, 4, 8, device="cuda")
+    b = torch.randn(1, 8, 4, device="cuda")
+    out = torch.empty(1, 4, 4, device="cuda")
+    lib = tk.load()["fdp_gemm"]
+    stream = torch.cuda.current_stream().cuda_stream
+    numerics = tk._numerics_args(spec, tfmt.FP32)
+    for lc, tm, tx, ty, ks, bks in ((6, 4, 16, 1, 8, 1), (4, 4, 2, 1, 128, 1),
+                                    (7, 4, 2, 1, 128, 1), (6, 8, 2, 1, 128, 1),
+                                    (6, 3, 2, 1, 128, 1), (24, 2, 2, 1, 128, 1)):
+        err = lib.fdp_gemm_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 4, 4, 8,
+                                  *a.stride(), *b.stride(), *numerics, lc, tm, tx, ty, ks,
+                                  bks, stream)
+        assert err != 0, (lc, tm, tx, ty, ks, bks)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1                       # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tk, "load", lambda: {"fdp_gemm": Refusing()})
+    before = tk.fdp_gemm.launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tk.fdp_gemm(a, b, spec=spec, fmt=tfmt.FP32)
+    assert tk.fdp_gemm.launches == before
