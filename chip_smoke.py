@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the final line):
   1. the card (nvidia-smi name and power limit); build the FDP kernels from
      ``src/repro_torch/kernels/csrc/`` (one nvcc per source, in parallel)
      and print the seconds; beside the build, ``kernels.sass_report``
-     compiles the dense kernel with ``-Xptxas -v`` and prints each
-     instantiation's registers, spills and SASS instructions a product;
+     compiles the two tiled kernels (dense and sorted-segment) with
+     ``-Xptxas -v`` and prints each instantiation's registers, spills and
+     SASS instructions a product;
   2. the dense FDP GEMM kernel against its plain PyTorch version on the
      card, torch.equal, over formats, round/overflow modes, register
      capacities 2, 4, 6, 12 and 32 (1, 3, 6, 12 and 26 limbs; a saturating
@@ -24,9 +25,19 @@ Phases (any failure exits non-zero before the final line):
      (qwen3-0.6b's and dbrx-132b's attention at decode among them) at 91
      bits and at <9,6,-20> on the same inputs, beside its bound; then the
      sorted-segment kernel against its plain version over formats, modes,
-     zero-size groups (leading and trailing), one group holding every row,
-     rows past the total, the three full-width expert shapes of a dbrx-132b
-     decode step and the 256 rows of its prefill;
+     register capacities 2, 4, 6, 12 and 32 (a saturating 3-limb register
+     fed products past its top limb), zero-size groups (leading and
+     trailing), one group holding every row, rows past the total, groups
+     longer than a row tile with partial last tiles, 1- and 2-row groups,
+     RNE where every product rounds, one-row tiles (T = E: their own
+     register path) in posit, with RNE rounding and with a saturating
+     3-limb register, a transposed weight, the three full-width expert
+     shapes of a dbrx-132b
+     decode step and the 256 rows of its prefill, and the 1024 rows of a
+     training step's moe_in forward and its dX against the transposed
+     weights (whole, checked on the first 64 output columns); the decode
+     sites and the training calls timed at 91 bits and at <9,6,-20> on the
+     same inputs, beside their bounds;
   3. qwen3-0.6b at full width served (4 prompts x 16 tokens, 16 generated)
      under the 91-bit FDP kernel policy, with the kernel's launch count
      set to 0 just before the first run and read just after it, and held
@@ -43,7 +54,8 @@ Phases (any failure exits non-zero before the final line):
      moe_in, moe_gate, moe_out);
   6. a 1-layer cut of dbrx-132b at full width, batch 1, prompt 4: forward
      logits in ``pallas`` mode torch.equal to ``simulate`` mode;
-  7. the bounds of phase 2's kernel times;
+  7. the bounds of phase 2's kernel times (the sorted-segment kernel's at
+     decode and at the training calls);
   8. the sorted-segment weight-gradient kernel (the MoE ``@bwd.dB``)
      against its plain version on the card, torch.equal, over formats,
      round/overflow modes, zero-size groups (leading, inner, trailing, all),
@@ -218,7 +230,7 @@ def main() -> None:
     from repro_torch.core.accumulator import SAFE_CHUNK, AccumulatorSpec
     from repro_torch.core.formats import BF16, FP32, POSIT16_1, PositFormat
     from repro_torch.kernels import fdp_gemm as K
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ragged_times
     from repro_torch.launch.serve import FDP91_KERNEL, serve
     from repro_torch.core.qformat import parse_quant
     from repro_torch.data.synthetic import SyntheticLM
@@ -238,8 +250,8 @@ def main() -> None:
     print(smi, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    # what ptxas made of the dense kernel (registers, spills, instructions a
-    # product), compiled beside the build
+    # what ptxas made of the two tiled kernels, dense and sorted-segment
+    # (registers, spills, instructions a product), compiled beside the build
     sass_proc = subprocess.Popen([sys.executable, "-m", "repro_torch.kernels.sass_report"],
                                  cwd=ROOT, env={**os.environ, "PYTHONPATH": src},
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -250,22 +262,26 @@ def main() -> None:
     sass_out, sass_err = sass_proc.communicate()
     if sass_proc.returncode != 0:
         fail(f"sass_report failed: {sass_err[-2000:]}")
-    sass = []
+    sass = {"fdp_gemm.cu": [], "fdp_ragged_gemm.cu": []}
     for line in sass_out.splitlines():
         r = json.loads(line)
         lc, tm, rne, masked = r["template"]
         loop = r["product_loop"] or {}
-        sass.append({"lc": lc, "tm": tm, "rne": rne, "masked": masked,
-                     "registers": r["registers"],
-                     "spill_bytes": r["spill_stores"] + r["spill_loads"],
-                     "loop_instructions": loop.get("instructions"),
-                     "loop_products": loop.get("products"),
-                     "instructions_per_product": loop.get("per_product")})
-        log(f"dense kernel LC={lc} TM={tm} rne={rne} masked={masked}: {r['registers']} "
+        sass[r["source"]].append({"lc": lc, "tm": tm, "rne": rne, "masked": masked,
+                                  "registers": r["registers"],
+                                  "spill_bytes": r["spill_stores"] + r["spill_loads"],
+                                  "loop_instructions": loop.get("instructions"),
+                                  "loop_products": loop.get("products"),
+                                  "instructions_per_product": loop.get("per_product")})
+        kind = "dense" if r["source"] == "fdp_gemm.cu" else "sorted-segment"
+        log(f"{kind} kernel LC={lc} TM={tm} rne={rne} masked={masked}: {r['registers']} "
             f"registers, "
             f"spills {r['spill_stores']}/{r['spill_loads']} bytes; product loop "
             f"{loop.get('instructions')} instructions for {loop.get('products')} products = "
             f"{loop.get('per_product', 0):.2f} a product")
+    if any(len(rows) != 76 for rows in sass.values()):
+        fail(f"sass_report read {[len(rows) for rows in sass.values()]} instantiations of "
+             f"the dense and sorted-segment kernels, not 76 each")
 
     # -- 2. kernels vs plain versions on the card ----------------------------
     P91 = AccumulatorSpec.paper_91bit()
@@ -469,15 +485,15 @@ def main() -> None:
         f"through ops.fdp_gemm")
 
     def routed_sizes(tokens: int, seed: int) -> list:
-        """Group sizes of top-k routing with each token's k experts drawn at
-        random, as a router with random weights spreads them."""
-        g = torch.Generator().manual_seed(seed)
-        ids = torch.stack([torch.randperm(mE, generator=g)[:mk] for _ in range(tokens)])
-        return torch.bincount(ids.reshape(-1), minlength=mE).tolist()
+        return ragged_times.routed_sizes(tokens, mE, mk, seed)
 
-    def ragged_operands(T, dd, ff, gs, fmt, x_scale=1.0, f_cols=None):
+    def ragged_operands(T, dd, ff, gs, fmt, x_scale=1.0, f_cols=None, wt=False):
         x = torch.randn(T, dd, generator=gen, device=dev) * x_scale
-        w = torch.randn(len(gs), dd, ff, generator=gen, device=dev) * dd ** -0.5
+        if wt:                                            # the dX view, (E, f, d) of (E, d, f)
+            w = (torch.randn(len(gs), ff, dd, generator=gen, device=dev)
+                 * dd ** -0.5).transpose(-1, -2)
+        else:
+            w = torch.randn(len(gs), dd, ff, generator=gen, device=dev) * dd ** -0.5
         x, w = on_grid(fmt, x, w)
         if f_cols is not None:
             w = w[:, :, :f_cols]                          # a strided column slice
@@ -491,6 +507,28 @@ def main() -> None:
         used = sum(1 for e, n in enumerate(gs) if n > 0 and sum(gs[:e]) < T)
         nbytes = 4 * (rows * dd + used * dd * ff + len(gs) + T * ff)
         return nbytes, K.int32_ops(rows * dd, used * dd * ff, rows * dd * ff), used
+
+    def ragged_timed(name, x, w, sizes, gs, reps):
+        """The sorted-segment kernel's time on (x, w, sizes) at 91 bits and
+        at <9,6,-20>, beside the bound of this data (``ragged_work``)."""
+        T, dd = x.shape
+        ff = w.shape[2]
+        nbytes, nops, used = ragged_work(T, dd, ff, gs)
+        lay = K.ragged_launch(P91.num_limbs, T, len(gs), dd, ff, sms)
+        r = {"shape": [T, dd, ff], "groups": gs, "non_empty_groups": used,
+             "layout": dataclasses.asdict(lay),
+             "ms": cuda_ms(torch, lambda: K.fdp_ragged_gemm(x, w, sizes, spec=P91, fmt=FP32),
+                           reps=reps),
+             "ms_fig3": cuda_ms(torch, lambda: K.fdp_ragged_gemm(x, w, sizes, spec=F3,
+                                                                 fmt=FP32), reps=reps),
+             "int32_ops_per_product": nops / (min(T, sum(gs)) * dd * ff),
+             **bound(nbytes, nops)}
+        log(f"sorted-segment kernel at {name} x {tuple(x.shape)} w {tuple(w.shape)}: "
+            f"{P91.describe()} {r['ms']:.4f} ms = {100 * r['bound_ms'] / r['ms']:.1f}% of its "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {F3.describe()} "
+            f"{r['ms_fig3']:.4f} ms = {r['ms_fig3'] / r['ms']:.3f}x; tile {lay.tile}, "
+            f"{lay.tm}x{lay.tn} outputs a thread, K split {lay.ks}")
+        return r
 
     gs_decode = routed_sizes(BATCH, seed=3)
     gs_prefill = routed_sizes(BATCH * PROMPT, seed=4)
@@ -507,7 +545,46 @@ def main() -> None:
         ("fp32 every row in one group", (32, 128, 64, [0, 0, 32, 0]), FP32, P91, {}),
         ("fp32 rows past the total (28 of 48)", (48, 96, 40, [7, 0, 13, 0, 0]), FP32,
          P91, {}),
+        ("fp32 groups longer than a row tile, partial last tiles", (150, 200, 72,
+                                                                    [70, 0, 45, 35]),
+         FP32, P91, {}),
+        ("fp32 1- and 2-row groups (one-row tiles)", (16, 300, 100,
+                                                      [1, 2, 0, 1, 2, 2, 0, 1, 1, 2, 0, 1,
+                                                       2, 1, 0, 0]), FP32, P91, {}),
+        ("fp32 a transposed weight (the dX view)", (96, 160, 72, [30, 0, 50, 16]), FP32,
+         P91, {"wt": True}),
+        ("fp32 1-limb <2,5,-8> (capacity 2)", (40, 100, 37, [0, 17, 23]), FP32, ONE,
+         {"x_scale": 8.0}),
+        ("fp32 <9,6,-20> (3 limbs, capacity 4)", (64, 150, 45, [20, 0, 44]), FP32, F3, {}),
+        ("fp32 saturate <9,6,-20>, products past the top limb", (40, 200, 40,
+                                                                 [15, 0, 25]),
+         FP32, F3_SAT, {"x_scale": 3e6}),
+        ("fp32 <60,60,-60> (12 limbs, capacity 12)", (24, 90, 19, [9, 0, 15]), FP32, WIDE12,
+         {"x_scale": 1e10}),
+        ("fp32 401-bit rne (26 limbs, capacity 32)", (24, 170, 29, [0, 11, 13]), FP32, WIDE,
+         {"x_scale": 1e20}),
+        ("fp32 rne, every product rounded", (32, 120, 40, [0, 12, 20]), FP32, RNE,
+         {"x_scale": 1e-6}),
     ]
+    # T = E: one-row tiles, run by fdp::row_chunks (its own instantiations)
+    one_row = [
+        ("one-row tiles, posit16_1 saturate <2,4,-20>",
+         (16, 200, 70, [1, 2, 0, 1, 2, 1, 1, 0, 2, 1, 1, 0, 2, 1, 1, 0]), POSIT16_1, SAT,
+         {"x_scale": 64.0}),
+        ("one-row tiles, fp32 rne, every product rounded",
+         (16, 240, 70, [2, 1, 1, 0, 1, 2, 0, 1, 1, 2, 1, 1, 0, 2, 1, 0]), FP32, RNE,
+         {"x_scale": 1e-6}),
+        ("one-row tiles, fp32 saturate <9,6,-20>, products past the top limb",
+         (16, 200, 40, [0, 1, 2, 1, 1, 0, 2, 2, 1, 1, 0, 1, 2, 1, 1, 0]), FP32, F3_SAT,
+         {"x_scale": 3e6}),
+        ("one-row tiles, fp32 saturate <9,6,-20>, sums past the top limb",
+         (16, 200, 40, [1, 1, 0, 2, 1, 1, 2, 0, 1, 1, 2, 1, 0, 1, 2, 0]), FP32, F3_SAT,
+         {"x_scale": 6e4}),
+    ]
+    for name, (T, dd, ff, gs), fmt, spec, kw in one_row:
+        if K.ragged_launch(spec.num_limbs, T, len(gs), dd, ff, sms).tile[0] != 1:
+            fail(f"{name}: the launcher did not pick one-row tiles")
+    ragged_cases += one_row
     for site, (T, dd, ff) in MOE_SITES.items():
         ragged_cases.append((f"decode {site} at full width, groups {gs_decode}",
                              (T, dd, ff, gs_decode), FP32, P91, {}))
@@ -526,22 +603,47 @@ def main() -> None:
             fail(f"sorted-segment kernel != plain for {name}: max |diff| {err}")
         if got[sum(gs):].any():
             fail(f"rows past the total are not zero for {name}")
-        extra = f", {n_saturated(got, spec)} outputs saturated" if spec is SAT else ""
+        saturating = spec.overflow_mode == "saturate"
+        extra = f", {n_saturated(got, spec)} outputs saturated" if saturating else ""
         ragged_err = max(ragged_err, err)
+        lay = K.ragged_launch(spec.num_limbs, T, len(gs), dd, ff, sms)
         log(f"sorted-segment kernel == plain (torch.equal): {name} "
-            f"x {tuple(x.shape)} w {tuple(w.shape)} {fmt.name} {spec.describe()}{extra}")
+            f"x {tuple(x.shape)} w {tuple(w.shape)} {fmt.name} {spec.describe()}{extra}; "
+            f"capacity {lay.lc}, tile {lay.tile}, {lay.tm}x{lay.tn} outputs a thread, K "
+            f"split {lay.ks}")
         site = name.split()[1] if name.startswith("decode") else None
         if site in MOE_SITES:
-            nbytes, nops, used = ragged_work(T, dd, ff, gs)
-            ragged_sites[site] = {
-                "shape": [T, dd, ff], "groups": gs, "non_empty_groups": used,
-                "ms": cuda_ms(torch, lambda: K.fdp_ragged_gemm(x, w, sizes, spec=P91,
-                                                               fmt=FP32), reps=20),
-                "plain_ms": cuda_ms(torch, lambda: K.fdp_ragged_gemm_plain(
-                    x, w, sizes, spec=P91, fmt=FP32), reps=1),
-                "int32_ops_per_product": nops / (min(T, sum(gs)) * dd * ff),
-                **bound(nbytes, nops)}
+            ragged_sites[site] = ragged_timed(f"decode {site}", x, w, sizes, gs, reps=20)
+            ragged_sites[site]["plain_ms"] = cuda_ms(torch, lambda: K.fdp_ragged_gemm_plain(
+                x, w, sizes, spec=P91, fmt=FP32), reps=1)
         del x, w, want, got
+    torch.cuda.empty_cache()
+
+    # a training step's moe_in at full width, 1024 routed rows: the forward
+    # and its dX against the transposed weights (a view), whole, held
+    # against the plain version on their first 64 output columns
+    gs_train = routed_sizes(TRAIN_BATCH * TRAIN_SEQ, seed=6)
+    T_rows = TRAIN_BATCH * TRAIN_SEQ * mk
+    w_train = torch.randn(mE, md, mf, generator=gen, device=dev) * md ** -0.5
+    sizes = torch.tensor(gs_train, dtype=torch.int32, device=dev)
+    ragged_train = {}
+    for site, w in (("moe_in", w_train), ("moe_in@bwd.dA", w_train.transpose(-1, -2))):
+        x = torch.randn(T_rows, w.shape[1], generator=gen, device=dev)
+        got = K.fdp_ragged_gemm(x, w, sizes, spec=P91, fmt=FP32)[:, :64]
+        want = K.fdp_ragged_gemm_plain(x, w[:, :, :64], sizes, spec=P91, fmt=FP32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"sorted-segment kernel != plain at the training {site} on its first 64 "
+                 f"columns: max |diff| {(got - want).abs().max().item()}")
+        log(f"sorted-segment kernel == plain (torch.equal): training {site}, x "
+            f"{tuple(x.shape)} w {tuple(w.shape)}{' (a transposed view)' if w.stride(1) == 1 else ''}, "
+            f"groups {gs_train}, on its first 64 columns")
+        ragged_train[site] = ragged_timed(f"training {site}", x, w, sizes, gs_train, reps=3)
+        ragged_train[site]["plain_ms"] = cuda_ms(torch, lambda: K.fdp_ragged_gemm_plain(
+            x, w[:, :, :64], sizes, spec=P91, fmt=FP32), reps=1)
+        ragged_train[site]["plain_at"] = "the first 64 columns"
+        del x, got, want
+    del w_train, w
     torch.cuda.empty_cache()
 
     # -- 3. and 5. serve a model at full width -------------------------------
@@ -724,16 +826,15 @@ def main() -> None:
 
     lm, mi = at_shape("lm_head"), at_shape("mlp_in")
     for site, r in (("qwen lm_head", lm), ("qwen mlp_in", mi), ("dbrx router", router),
-                    *((f"dbrx {s}", r) for s, r in ragged_sites.items())):
+                    *((f"dbrx {s} decode", r) for s, r in ragged_sites.items()),
+                    *((f"dbrx {s} training", r) for s, r in ragged_train.items())):
         log(f"bound at {site}: {r['bound_ms']:.4f} ms ({r['bound_by']}; int32 ops at "
             f"{INT32_OPS_PER_S:.4g} op/s, bytes at {HBM_BYTES_PER_S:.3g} B/s); kernel "
             f"{r['ms']:.4f} ms = {100 * r['bound_ms'] / r['ms']:.1f}% of bound; plain "
-            f"{r['plain_ms']:.2f} ms")
+            f"{r['plain_ms']:.2f} ms" + (f" on {r['plain_at']}" if "plain_at" in r else ""))
     # -- 8. the weight-gradient kernel; kernels 1 and 3 at backward shapes ----
     tcfg = dataclasses.replace(mcfg, n_layers=TRAIN_LAYERS)
-    n_tok = TRAIN_BATCH * TRAIN_SEQ
-    T_rows = n_tok * mk                          # routed rows of one training step
-    gs_train = routed_sizes(n_tok, seed=6)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ               # T_rows routed rows, gs_train (phase 2)
 
     def dw_operands(T, dd, ff, fmt, x_scale=1.0, positive=False):
         x = torch.randn(T, dd, generator=gen, device=dev) * x_scale
@@ -1322,7 +1423,7 @@ def main() -> None:
         "bound_by": lm["bound_by"], "library_ms": None,
         "at": f"qwen3-0.6b lm_head {tuple(lm['shape'])} fp32 {P91.describe()}",
         "mlp_in": mi, "router_2d": {**router, "launches": dbrx["calls"]["moe_router"]},
-        "dense_shapes": dense, "sass": sass,
+        "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"],
     }, {
@@ -1337,7 +1438,8 @@ def main() -> None:
         "bound_by": moe_in["bound_by"], "library_ms": None,
         "at": f"dbrx-132b moe_in decode {tuple(moe_in['shape'])} groups "
               f"{moe_in['groups']} fp32 {P91.describe()}",
-        "sites": ragged_sites,
+        "sites": ragged_sites, "training_sites": ragged_train,
+        "sass": sass["fdp_ragged_gemm.cu"],
         "dbrx_serve": {k: v for k, v in dbrx.items() if k != "trace"},
         "dbrx_serve_trace": dbrx["trace"], "dbrx_1layer_pallas_vs_simulate": dbrx_eq,
     }, {

@@ -676,8 +676,9 @@ def _segment_ids(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
 
 def _fit_ragged(plan: GemmPlan, axis: str, n_rows: int, n_groups: int) -> GemmPlan:
     """Clamp the plan's token-axis block to the mean segment size (8-aligned),
-    as the reference does for its tile walk. The CUDA kernel has no token
-    block (one block row per token), so no launch reads the result."""
+    as the reference does for its tile walk. No launch reads the result: the
+    CUDA kernel's row tiles come from ``kernels.fdp_gemm.ragged_launch``,
+    which sizes them from the same mean (T / E) rather than from a plan."""
     block = min(getattr(plan, axis), _ceil8(max(1, n_rows // max(1, n_groups))))
     if block == getattr(plan, axis):
         return plan

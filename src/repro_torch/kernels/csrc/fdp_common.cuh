@@ -1,11 +1,11 @@
-// Device math shared by the FDP kernels: decode to (sign, mant, exp), exact
-// product entry into int32 limbs, carry normalization, the W-bit
-// wrap/saturate read-out with one RNE rounding to f32, and the contraction
-// of one output column with K split over K_SLICES threads (the
-// sorted-segment kernels and the seed-order kernel); then the word register
-// of the dense kernel (fdp_gemm.cu), read out through the same to_float.
-// Bit-identical to repro.core.fdp.fdp_gemm for every format, round mode and
-// overflow mode.
+// Device math shared by the FDP kernels: decode to (sign, mant, exp); the
+// limb register of the weight-gradient and seed-order kernels
+// (fdp_ragged_dw.cu, fdp_gemm_looped.cu: exact product entry into int32
+// limbs, carry normalization every SAFE_CHUNK products); the word register
+// of the tiled kernels (fdp_tile.cuh, for fdp_gemm.cu and
+// fdp_ragged_gemm.cu); and the W-bit wrap/saturate read-out with one RNE
+// rounding to f32 that both registers end in. Bit-identical to
+// repro.core.fdp.fdp_gemm for every format, round mode and overflow mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,7 +16,6 @@ namespace fdp {
 constexpr int LIMB_BITS = 16;
 constexpr uint32_t LIMB_MASK = 0xFFFFu;
 constexpr int TILE_N = 32;
-constexpr int K_SLICES = 8;
 constexpr int SAFE_CHUNK = 1 << 13;
 
 struct Spec {
@@ -234,63 +233,6 @@ __device__ float to_float(uint32_t (&limb)[LC], const Spec& spec) {
   return sign_neg ? -v : v;
 }
 
-// ---------------------------------------------------------------------------
-// One output element per thread column of a (TILE_N, K_SLICES) block:
-// out = round_f32(sum_k q(a_row[k * sak] * b_col[k * sbk])). threadIdx.y
-// takes one contiguous slice of K and keeps its limbs in registers,
-// normalizing carries every SAFE_CHUNK products (the carry headroom of a
-// 16-bit digit in an int32 limb, as core.accumulator's SAFE_CHUNK); the
-// K_SLICES registers of one output are summed in shared memory (integer
-// limb addition is exact and order-free, so the split does not change the
-// bits) and read out once. Every thread of the block must call this (it
-// synchronizes); a thread with active == false reads nothing and writes
-// nothing.
-// ---------------------------------------------------------------------------
-template <int LC>
-__device__ __forceinline__ void contract_column(
-    uint32_t (&red)[K_SLICES][LC][TILE_N], const uint32_t* a_row, long long sak,
-    const uint32_t* b_col, long long sbk, int K, bool active, const Spec& spec,
-    const Fmt& fmt, float* out) {
-  const int tx = threadIdx.x, ks = threadIdx.y;
-  const int L = spec.num_limbs;
-
-  uint32_t limb[LC];
-#pragma unroll
-  for (int l = 0; l < LC; ++l) limb[l] = 0u;
-
-  if (active) {
-    const int per = (K + K_SLICES - 1) / K_SLICES;
-    const int k_begin = min(K, ks * per);
-    const int k_end = min(K, k_begin + per);
-    int since = 0;
-    for (int k = k_begin; k < k_end; ++k) {
-      uint32_t sa, ma, sb, mb;
-      int ea, eb;
-      decode(a_row[k * sak], fmt, sa, ma, ea);
-      decode(b_col[k * sbk], fmt, sb, mb, eb);
-      add_product(limb, L, sa, ma, ea, sb, mb, eb, spec.lsb, spec.rne);
-      if (++since == SAFE_CHUNK) {
-        carry_normalize(limb, L);
-        since = 0;
-      }
-    }
-    carry_normalize(limb, L);
-  }
-#pragma unroll
-  for (int l = 0; l < LC; ++l) red[ks][l][tx] = limb[l];
-  __syncthreads();
-  if (ks != 0 || !active) return;
-#pragma unroll
-  for (int l = 0; l < LC; ++l) {
-    uint32_t s = 0u;
-#pragma unroll
-    for (int j = 0; j < K_SLICES; ++j) s += red[j][l][tx];
-    limb[l] = s;
-  }
-  carry_normalize(limb, L);
-  *out = to_float(limb, spec);
-}
-
 // Runs Launch<LC>::run(args...) for the smallest register capacity LC that
 // holds num_limbs limbs (limb indices must be compile-time constants so the
 // limbs stay in registers); more than 40 limbs is refused.
@@ -308,7 +250,7 @@ cudaError_t dispatch_limbs(int num_limbs, Args... args) {
 }
 
 // ---------------------------------------------------------------------------
-// The word register (the dense kernel, fdp_gemm.cu): the register as one
+// The word register (the tiled kernels, fdp_tile.cuh): the register as one
 // two's-complement integer of NW 32-bit words, every product added with the
 // hardware carry chain, so no carry is ever pending. A register of L limbs
 // is exact modulo 2^(16(L-1) + 32) (limbs 0..L-2 of 16 bits and the 32-bit

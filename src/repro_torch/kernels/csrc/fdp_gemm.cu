@@ -61,107 +61,24 @@
 // split does not change the bits). The launcher (kernels/fdp_gemm.py,
 // dense_launch) picks the capacity, the rows a thread owns, the thread
 // layout (TX columns x TY rows x KS slices = 256) and the chunk depth; this
-// file checks them. Offsets
-// are int64; ragged edges are masked (zeros decode to nothing), nothing is
-// padded.
+// file checks them. Offsets are int64; ragged edges are masked (zeros
+// decode to nothing), nothing is padded.
+//
+// The block tile's body (decode, products, K-split tree, read-out) is
+// fdp::fdp_tile in csrc/fdp_tile.cuh, shared with the sorted-segment
+// forward kernel (fdp_ragged_gemm.cu); this file maps a block to its batch
+// element, row tile and column tile.
 
-#include "fdp_common.cuh"
+#include "fdp_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using fdp::Layout;
+using fdp::THREADS;
+using fdp::Tile;
 
-// the dynamic shared memory a block may take, and at capacity LC the most
-// rows (TM) and the columns (TN) of outputs a thread owns and the blocks an
-// SM should hold: the table of csrc/fdp_gemm_tiles.def, which the launcher
-// reads too
-#define FDP_DENSE_TILE(lc, tm, tn, blocks)
-#define FDP_DENSE_SMEM_LIMIT(bytes) constexpr int SMEM_LIMIT = bytes;
-#include "fdp_gemm_tiles.def"
-#undef FDP_DENSE_SMEM_LIMIT
-#undef FDP_DENSE_TILE
-
-template <int LC> struct Tile;
-#define FDP_DENSE_SMEM_LIMIT(bytes)
-#define FDP_DENSE_TILE(lc, tm, tn, blocks) \
-  template <> struct Tile<lc> { static constexpr int TM = tm, TN = tn, BLOCKS = blocks; };
-#include "fdp_gemm_tiles.def"
-#undef FDP_DENSE_TILE
-#undef FDP_DENSE_SMEM_LIMIT
-
-struct Layout {
-  int tx, ty, ks, bks;       // threads along N, along M, K slices; k per slice per chunk
-};
-
-// Decode one operand element into its shared-memory form: x = significand
-// | sign << 31 (significands are < 2^24), y = exponent - lsb_off. NaN, Inf,
-// zero, NaR and elements past the edge decode to significand 0.
-__device__ __forceinline__ uint2 decode_element(const uint32_t* p, bool inside,
-                                                const fdp::Fmt& fmt, int lsb_off) {
-  uint2 d = make_uint2(0u, 0u);
-  if (inside) {
-    uint32_t sign, mant;
-    int exp;
-    fdp::decode(*p, fmt, sign, mant, exp);
-    d.x = mant | (sign << 31);
-    d.y = (uint32_t)(exp - lsb_off);
-  }
-  return d;
-}
-
-// Decode the tile of 2^rlog x 2^clog elements at (r0, c0) of an operand with
-// strides (sr, sc) into dst[c << rlog | r]; r_fast walks r along neighbouring
-// threads (the unit-stride dimension), else c. Past (rlim, clim): zeros.
-__device__ __forceinline__ void load_tile(uint2* dst, const uint32_t* base, int r0, int c0,
-                                          int rlim, int clim, int rlog, int clog,
-                                          long long sr, long long sc, bool r_fast,
-                                          const fdp::Fmt& fmt, int lsb_off) {
-  const int rows = 1 << rlog, cols = 1 << clog, n = rows * cols;
-  for (int e = threadIdx.x; e < n; e += THREADS) {
-    int r, c;
-    if (r_fast) {
-      r = e & (rows - 1);
-      c = e >> rlog;
-    } else {
-      c = e & (cols - 1);
-      r = e >> clog;
-    }
-    const int gr = r0 + r, gc = c0 + c;
-    const bool inside = gr < rlim && gc < clim;
-    dst[(c << rlog) | r] = decode_element(
-        base + (inside ? (long long)gr * sr + (long long)gc * sc : 0), inside, fmt, lsb_off);
-  }
-}
-
-// A decoded element as the product needs it: significand, sign as a mask
-// (0 or ~0), exponent.
-__device__ __forceinline__ void unpack(uint2 v, uint32_t& mant, uint32_t& smask, int& exp) {
-  mant = v.x & 0x7FFFFFFFu;
-  smask = (uint32_t)((int32_t)v.x >> 31);
-  exp = (int)v.y;
-}
-
-// Unpack N consecutive decoded elements (16-byte loads where N is even).
-template <int N>
-__device__ __forceinline__ void load_decoded(const uint2* p, uint32_t (&mant)[N],
-                                             uint32_t (&smask)[N], int (&exp)[N]) {
-  uint2 v[N];
-  if constexpr (N % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p + i);
-      v[i] = make_uint2(u.x, u.y);
-      v[i + 1] = make_uint2(u.z, u.w);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = p[i];
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) unpack(v[i], mant[i], smask[i], exp[i]);
-}
-
-// TM rows x Tile<LC>::TN columns of outputs a thread
+// Batch element blockIdx.z, row tile blockIdx.y, column tile blockIdx.x;
+// TM rows x Tile<LC>::TN columns of outputs a thread (fdp_tile.cuh).
 template <int LC, int TM, bool RNE, bool MASKED>
 __global__ void __launch_bounds__(THREADS, Tile<LC>::BLOCKS)
 fdp_gemm_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ B,
@@ -169,166 +86,29 @@ fdp_gemm_kernel(const uint32_t* __restrict__ A, const uint32_t* __restrict__ B,
                 long long sab, long long sam, long long sak,
                 long long sbb, long long sbk, long long sbn,
                 fdp::Spec spec, fdp::Fmt fmt, Layout lay) {
-  constexpr int TN = Tile<LC>::TN;
-  constexpr int NW = LC / 2 + 1, PW = LC / 2;
-  extern __shared__ uint4 smem_raw[];
-  uint2* smem = reinterpret_cast<uint2*>(smem_raw);
-
-  const int TX = lay.tx, TY = lay.ty, KS = lay.ks, BKS = lay.bks;
-  const int BM = TY * TM, BN = TX * TN, BK = KS * BKS;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = (tid / TX) % TY, slice = tid / (TX * TY);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * (lay.ty * TM), n0 = blockIdx.x * (lay.tx * Tile<LC>::TN);
   const long long bz = blockIdx.z;
-  const int bm_log = __ffs(BM) - 1, bn_log = __ffs(BN) - 1, bk_log = __ffs(BK) - 1;
-  uint2* sA = smem;                    // [BK][BM]
-  uint2* sB = smem + BK * BM;          // [BK][BN]
-  const uint32_t* Ab = A + bz * sab;
-  const uint32_t* Bb = B + bz * sbb;
-  const bool a_m_fast = sak != 1 && sam == 1;
-  const bool b_k_fast = sbn != 1 && sbk == 1;
-
-  uint32_t mask[PW];
-  fdp::window_masks<PW>(mask, spec.num_limbs);
-  uint32_t acc[TM][TN][NW];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-#pragma unroll
-      for (int w = 0; w < NW; ++w) acc[i][j][w] = 0u;
-
-  const uint2* a_at = sA + ty * TM;
-  const uint2* b_at = sB + tx;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    // A tile: r = m, c = k; B tile: r = n, c = k (both k-major in shared memory)
-    load_tile(sA, Ab, m0, k0, M, K, bm_log, bk_log, sam, sak, a_m_fast, fmt, spec.lsb);
-    load_tile(sB, Bb, n0, k0, N, K, bn_log, bk_log, sbn, sbk, !b_k_fast, fmt, 0);
-    __syncthreads();
-    for (int kk = slice * BKS, kend = kk + BKS; kk < kend; ++kk) {
-      uint32_t ma[TM], sa[TM], mb[TN], sb[TN];
-      int ea[TM], eb[TN];
-      load_decoded<TM>(a_at + kk * BM, ma, sa, ea);        // this thread's rows
-#pragma unroll
-      for (int j = 0; j < TN; ++j)                         // its columns, TX apart
-        unpack(b_at[kk * BN + j * TX], mb[j], sb[j], eb[j]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          fdp::add_product_words<NW, RNE, MASKED>(acc[i][j], mask, ma[i], mb[j],
-                                                  ea[i] + eb[j], sa[i] ^ sb[j]);
-    }
-  }
-
-  // the KS slices' registers summed exactly, in a tree; slice 0 keeps the sum
-  if (KS > 1) {
-    uint32_t* red = reinterpret_cast<uint32_t*>(smem);
-    const int NO = TX * TY, o = tid % NO;
-    for (int half = KS >> 1; half > 0; half >>= 1) {
-      __syncthreads();
-      if (slice >= half && slice < 2 * half) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-#pragma unroll
-            for (int w = 0; w < NW; ++w)
-              red[(((i * TN + j) * NW + w) * half + slice - half) * NO + o] = acc[i][j][w];
-      }
-      __syncthreads();
-      if (slice < half) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            uint32_t x[NW];
-#pragma unroll
-            for (int w = 0; w < NW; ++w)
-              x[w] = red[(((i * TN + j) * NW + w) * half + slice) * NO + o];
-            fdp::add_words<NW>(acc[i][j], x, 0u);
-          }
-      }
-    }
-    if (slice != 0) return;
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (m < M && n < N) {
-        uint32_t limb[LC];
-        fdp::words_to_limbs<LC>(acc[i][j], spec.num_limbs, limb);
-        C[(bz * M + m) * (long long)N + n] = fdp::to_float<LC>(limb, spec);
-      }
-    }
-  }
+  fdp::fdp_tile<LC, TM, RNE, MASKED>(A + bz * sab, sam, sak, m0, M, B + bz * sbb, sbk, sbn, n0,
+                                     N, K, C, bz * M, spec, fmt, lay);
 }
-
-bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
 template <int LC, int TM, bool RNE, bool MASKED>
-cudaError_t launch(const uint32_t* a, const uint32_t* b, float* c, int Bn, int M, int N,
-                   int K, long long sab, long long sam, long long sak, long long sbb,
-                   long long sbk, long long sbn, fdp::Spec spec, fdp::Fmt fmt, Layout lay,
-                   cudaStream_t stream) {
-  constexpr int TN = Tile<LC>::TN, NW = LC / 2 + 1;
-  if (spec.num_limbs > LC || !pow2(lay.tx) || !pow2(lay.ty) || !pow2(lay.ks) ||
-      !pow2(lay.bks) || lay.tx * lay.ty * lay.ks != THREADS)
-    return cudaErrorInvalidValue;
-  const long long BM = (long long)lay.ty * TM, BN = (long long)lay.tx * TN;
-  const long long BK = (long long)lay.ks * lay.bks;
-  const long long tile = (BM + BN) * BK * (long long)sizeof(uint2);
-  const long long red = lay.ks > 1 ? (long long)(lay.ks / 2) * lay.tx * lay.ty * TM * TN * NW * 4
-                                   : 0;
-  const long long smem = tile > red ? tile : red;
-  const long long gx = (N + BN - 1) / BN, gy = (M + BM - 1) / BM;
-  if (smem > SMEM_LIMIT || gx > 2147483647LL || gy > 65535 || Bn > 65535)
-    return cudaErrorInvalidValue;
-  dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)Bn);
-  fdp_gemm_kernel<LC, TM, RNE, MASKED><<<grid, THREADS, (size_t)smem, stream>>>(
-      a, b, c, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec, fmt, lay);
-  return cudaGetLastError();
-}
-
-template <int LC, int TM>
-cudaError_t launch_tm(const uint32_t* a, const uint32_t* b, float* c, int Bn, int M, int N,
-                      int K, long long sab, long long sam, long long sak, long long sbb,
-                      long long sbk, long long sbn, fdp::Spec spec, fdp::Fmt fmt, Layout lay,
-                      cudaStream_t stream) {
-  // the window mask matters only to a saturating register narrower than LC
-  const bool masked = spec.saturate && spec.num_limbs < LC;
-#define FDP_LAUNCH(rne, masked)                                                          \
-  launch<LC, TM, rne, masked>(a, b, c, Bn, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec, fmt, \
-                              lay, stream)
-  if (spec.rne) return masked ? FDP_LAUNCH(true, true) : FDP_LAUNCH(true, false);
-  return masked ? FDP_LAUNCH(false, true) : FDP_LAUNCH(false, false);
-#undef FDP_LAUNCH
-}
-
-// tm: Tile<LC>::TM, or TM/2 or TM/4 where that is at least 1
-template <int LC>
-cudaError_t launch_lc(int tm, const uint32_t* a, const uint32_t* b, float* c, int Bn, int M,
-                      int N, int K, long long sab, long long sam, long long sak, long long sbb,
-                      long long sbk, long long sbn, fdp::Spec spec, fdp::Fmt fmt, Layout lay,
-                      cudaStream_t stream) {
-  constexpr int TM = Tile<LC>::TM;
-#define FDP_LAUNCH(rows) \
-  launch_tm<LC, rows>(a, b, c, Bn, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec, fmt, lay, stream)
-  if (tm == TM) return FDP_LAUNCH(TM);
-  if constexpr (TM >= 2) {
-    if (tm == TM / 2) return FDP_LAUNCH(TM / 2);
+struct Launch {
+  static cudaError_t run(const uint32_t* a, const uint32_t* b, float* c, int Bn, int M, int N,
+                         int K, long long sab, long long sam, long long sak, long long sbb,
+                         long long sbk, long long sbn, fdp::Spec spec, fdp::Fmt fmt,
+                         Layout lay, cudaStream_t stream) {
+    const long long smem = fdp::tile_smem<LC, TM>(spec, lay);
+    const long long BM = (long long)lay.ty * TM, BN = (long long)lay.tx * Tile<LC>::TN;
+    const long long gx = (N + BN - 1) / BN, gy = (M + BM - 1) / BM;
+    if (smem < 0 || gx > 2147483647LL || gy > 65535 || Bn > 65535)
+      return cudaErrorInvalidValue;
+    dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)Bn);
+    fdp_gemm_kernel<LC, TM, RNE, MASKED><<<grid, THREADS, (size_t)smem, stream>>>(
+        a, b, c, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec, fmt, lay);
+    return cudaGetLastError();
   }
-  if constexpr (TM >= 4) {
-    if (tm == TM / 4) return FDP_LAUNCH(TM / 4);
-  }
-  return cudaErrorInvalidValue;
-#undef FDP_LAUNCH
-}
+};
 
 }  // namespace
 
@@ -348,25 +128,11 @@ int fdp_gemm_launch(const void* a, const void* b, void* c, int Bn, int M, int N,
                     int rne, int saturate, int posit, int nbits, int es, int lc, int tm,
                     int tx, int ty, int ks, int bks, void* stream) {
   if (num_limbs < 1 || M < 0 || N < 0 || K < 0 || Bn < 0) return (int)cudaErrorInvalidValue;
-  const uint32_t* pa = static_cast<const uint32_t*>(a);
-  const uint32_t* pb = static_cast<const uint32_t*>(b);
-  float* pc = static_cast<float*>(c);
   const fdp::Spec spec{lsb, width, num_limbs, rne, saturate};
-  const fdp::Fmt fmt{posit, nbits, es};
-  const Layout lay{tx, ty, ks, bks};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FDP_DENSE_SMEM_LIMIT(bytes)
-#define FDP_DENSE_TILE(n, tm_, tn_, blocks_)                                               \
-  case n:                                                                                  \
-    return (int)launch_lc<n>(tm, pa, pb, pc, Bn, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec, \
-                             fmt, lay, s);
-  switch (lc) {
-#include "fdp_gemm_tiles.def"
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef FDP_DENSE_TILE
-#undef FDP_DENSE_SMEM_LIMIT
+  return (int)fdp::dispatch_tile<Launch>(
+      lc, tm, spec, static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<float*>(c), Bn, M, N, K, sab, sam, sak, sbb, sbk, sbn, spec,
+      fdp::Fmt{posit, nbits, es}, Layout{tx, ty, ks, bks}, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

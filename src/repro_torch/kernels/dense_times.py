@@ -79,28 +79,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _traced_us(fn) -> list:
-    """The device microseconds of each dense kernel launch that ``fn``
-    makes, in order, from one ``torch.profiler`` trace."""
+def _traced_us(fn, symbol: str = "fdp_gemm_kernel") -> list:
+    """The device microseconds of each launch of the kernel whose device
+    symbol holds ``symbol`` (the dense kernel's by default; it is no
+    substring of the sorted-segment kernel's) that ``fn`` makes, in order,
+    from one ``torch.profiler`` trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and "fdp_gemm_kernel" in e.name),
+                  if e.device_type == DeviceType.CUDA and symbol in e.name),
                  key=lambda e: e.time_range.start)
     return [e.time_range.elapsed_us() for e in evs]
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of the dense kernel's launches in ``reps``
-    calls."""
+def device_ms(fn, reps: int, symbol: str = "fdp_gemm_kernel") -> float:
+    """Mean device milliseconds of the kernel's launches (``_traced_us``)
+    in ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
-    us = _traced_us(lambda: [fn() for _ in range(reps)])
+    us = _traced_us(lambda: [fn() for _ in range(reps)], symbol)
     if not 0 < len(us) <= reps:
-        raise RuntimeError(f"traced {len(us)} dense kernel launches in {reps} calls")
+        raise RuntimeError(f"traced {len(us)} launches of {symbol} in {reps} calls")
     return sum(us) / len(us) / 1e3
 
 

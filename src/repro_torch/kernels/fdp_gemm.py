@@ -18,8 +18,8 @@ sorted-segment MoE forward: ``x (T, d)`` rows sorted by group, ``w (E, d,
 f)``, ``group_sizes (E,)`` -> ``(T, f)`` f32, row ``t`` against the weights
 of its group, rows past ``sum(group_sizes)`` zero. It replaces the Pallas
 body ``fdp_ragged_kernel`` (through ``fdp_ragged_gemm_pallas``). Each block
-of the kernel finds its row's group from the group sizes on the device, so
-no tile table is built and the host never reads the sizes.
+of the kernel finds its tile of one group's rows from the group sizes on
+the device, so no tile table is built and the host never reads the sizes.
 
 ``fdp_ragged_dw(x, g, group_sizes, spec=..., fmt=...)`` is the
 sorted-segment MoE weight gradient: ``x (T, d)``, ``g (T, f)`` rows sorted by
@@ -46,18 +46,21 @@ time. ``dense_launch`` picks the capacity, the rows a thread owns, the
 thread layout and the K split, the least costly by a model fitted to the
 kernel's device times (``dense_cost``), and ``dense_plan`` folds a weight
 broadcast over the batch into the rows (``fold_broadcast``) so that it is
-read once. The tile table is ``csrc/fdp_gemm_tiles.def``, which the kernel
-includes and ``dense_launch`` reads.
+read once. The tile table is ``csrc/fdp_gemm_tiles.def``, which the kernels
+include and ``dense_launch`` reads.
 
-The other three still spend more operations than the function needs: the
-sorted-segment forward and the weight gradient (whose device math is the
-limb register of ``csrc/fdp_common.cuh``) decode both operands per product
-and place each product by compare-and-select over every limb, from 6
-limbs up; the forward splits K over eight threads per output, summed exactly
-in shared memory, so that 16 expert rows fill the card, and the weight
-gradient, whose K is a group's few rows and whose outputs number E*d*f,
-gives each output one thread. The seed-order kernel keeps the seed's
-per-k order on purpose, one thread per output.
+The sorted-segment forward (``csrc/fdp_ragged_gemm.cu``) runs the same tile
+body (``csrc/fdp_tile.cuh``) on tiles of one group's rows against that
+group's weights, found on the device; ``ragged_launch`` picks its layout
+from the shapes alone, as the dense layout for E groups of T/E rows.
+
+The other two still spend more operations than the function needs: the
+weight gradient (whose device math is the limb register of
+``csrc/fdp_common.cuh``) decodes both operands per product and places each
+product by compare-and-select over every limb, from 6 limbs up; its K is a
+group's few rows and its outputs number E*d*f, so each output has one
+thread. The seed-order kernel keeps the seed's per-k order on purpose, one
+thread per output.
 
 On CPU tensors the wrappers run the plain PyTorch versions
 (``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``, ``fdp_ragged_dw_plain``: the
@@ -132,7 +135,7 @@ _ENTRIES = {
                         + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "fdp_ragged_gemm": ("fdp_ragged_gemm_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                        + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 8
+                        + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 14
                         + [ctypes.c_void_p]),
     "fdp_ragged_dw": ("fdp_ragged_dw_launch",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
@@ -357,6 +360,25 @@ def dense_launch(num_limbs: int, batch: int, rows: int, cols: int, depth: int,
                                 lay.ks, -lay.bks))
 
 
+@functools.lru_cache(maxsize=4096)
+def ragged_launch(num_limbs: int, T: int, E: int, d: int, f: int, sms: int) -> DenseLaunch:
+    """The sorted-segment kernel's launch for ``x (T, d)`` against ``w (E,
+    d, f)`` at ``num_limbs`` limbs on a card of ``sms`` multiprocessors:
+    ``dense_launch`` for E groups (the batch) of ceil(T / E) rows, the rows
+    a group holds on average. The group sizes stay on the device (reading
+    them would wait for the router), so the shapes are all it knows."""
+    return dense_launch(num_limbs, max(E, 1), max(1, -(-T // max(E, 1))), f, d, sms)
+
+
+def ragged_grid(lay: DenseLaunch, T: int, E: int, f: int) -> tuple:
+    """The sorted-segment kernel's grid: (row tiles, column tiles). The E
+    groups and the rows past their total are E + 1 segments of T rows, each
+    tiled by BM rows on its own, so they need at most ceil(T / BM) + E row
+    tiles."""
+    bm, bn, _ = lay.tile
+    return -(-T // bm) + E, -(-f // bn)
+
+
 def fold_broadcast(a: torch.Tensor, b: torch.Tensor):
     """``(a', b')`` = a view of ``a`` as ``(1, B*M, K)`` and ``b[:1]`` when the
     weight ``b`` is broadcast over the batch (batch stride 0) and ``a``'s
@@ -372,7 +394,7 @@ def fold_broadcast(a: torch.Tensor, b: torch.Tensor):
     return folded, b[:1]
 
 
-_GRID_ROWS = 65535          # the kernel grid's limit on row tiles and on batch
+_GRID_YZ = 65535            # a grid's limit on its y and z axes
 
 
 def dense_plan(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int) -> tuple:
@@ -384,13 +406,13 @@ def dense_plan(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int) -> tu
     if folded is not None:
         fa, fb = folded
         lay = dense_launch(num_limbs, 1, fa.shape[1], fb.shape[2], fa.shape[2], sms)
-        if lay.grid(1, fa.shape[1], fb.shape[2])[1] <= _GRID_ROWS:
+        if lay.grid(1, fa.shape[1], fb.shape[2])[1] <= _GRID_YZ:
             return fa, fb, lay
     Bn, M, K = a.shape
     lay = dense_launch(num_limbs, Bn, M, b.shape[2], K, sms)
-    if lay.grid(Bn, M, b.shape[2])[1] > _GRID_ROWS or Bn > _GRID_ROWS:
-        raise ValueError(f"batch {Bn} or rows {M} exceed the kernel grid ({_GRID_ROWS} "
-                         f"tiles of {lay.tile[0]} rows, {_GRID_ROWS} batch elements)")
+    if lay.grid(Bn, M, b.shape[2])[1] > _GRID_YZ or Bn > _GRID_YZ:
+        raise ValueError(f"batch {Bn} or rows {M} exceed the kernel grid ({_GRID_YZ} "
+                         f"tiles of {lay.tile[0]} rows, {_GRID_YZ} batch elements)")
     return a, b, lay
 
 
@@ -513,7 +535,8 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     rows past ``sum(group_sizes)`` 0.0.
 
     ``x`` and ``w`` may have any strides. On CUDA tensors the kernel reads
-    ``group_sizes`` on the device (the host never waits for it) and the
+    ``group_sizes`` on the device (the host never waits for it), with
+    ``ragged_launch``'s layout for the card's multiprocessor count, and the
     launch is counted in ``fdp_ragged_gemm.launches``; CPU tensors run
     ``fdp_ragged_gemm_plain``."""
     if x.ndim != 2 or w.ndim != 3 or x.shape[1] != w.shape[1] \
@@ -530,18 +553,24 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     numerics = _numerics_args(spec, fmt)
     T, d = x.shape
     E, _, f = w.shape
-    if -(-f // 32) > 65535:
-        raise ValueError(f"{f} columns exceed the kernel grid (65535 tiles of 32)")
     out = torch.empty((T, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    lay = ragged_launch(spec.num_limbs, T, E, d, f, _sm_count(index))
+    rows, cols = ragged_grid(lay, T, E, f)
+    if cols > _GRID_YZ or rows > 2 ** 31 - 1:
+        raise ValueError(f"{T} rows or {f} columns exceed the kernel grid (2^31 - 1 row "
+                         f"tiles of {lay.tile[0]}, {_GRID_YZ} column tiles of "
+                         f"{lay.tile[1]})")
     gs = group_sizes.to(torch.int32).contiguous()
     lib = load()["fdp_ragged_gemm"]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.fdp_ragged_gemm_launch(
             x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(), T, E, d, f,
-            *x.stride(), *w.stride(), *numerics, stream)
+            *x.stride(), *w.stride(), *numerics, lay.lc, lay.tm, lay.tx, lay.ty, lay.ks,
+            lay.bks, stream)
     if err != 0:
         raise RuntimeError(f"fdp_ragged_gemm kernel launch failed: cudaError {err}")
     _count(fdp_ragged_gemm)

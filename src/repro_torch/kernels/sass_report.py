@@ -1,24 +1,28 @@
 """What the compiler made of a kernel source: registers, spills and the
-instructions each exact product costs in the innermost product loop.
+instructions each exact product costs in its product loop.
 
     python -m repro_torch.kernels.sass_report [SOURCE.cu ...]
 
-(default: ``csrc/fdp_gemm.cu``) compiles each source to a cubin for
-``sm_90a`` with the kernels' flags and ``-Xptxas -v``, then reads
+(default: the two tiled kernels, ``csrc/fdp_gemm.cu`` and
+``csrc/fdp_ragged_gemm.cu``) compiles each source to a cubin for ``sm_90a``
+with the kernels' flags and ``-Xptxas -v``, all sources at once, then reads
 ``cuobjdump -sass``. For every kernel instantiation it prints one JSON
 line: the registers and spill bytes that ptxas reports, and for its
-product loop (the innermost loop, a backward branch, with the most
-significand products, each an ``IMAD.WIDE.U32`` with no addend, that
-stores nothing to shared memory) the instructions in its body, the
-products it forms, their ratio, and the body's opcode counts. The count is
+product loop (the loop, a backward branch, whose own body forms the most
+significand products, each an ``IMAD.WIDE.U32`` with no addend; not a
+tile-load loop) the instructions in that body, the products it forms,
+their ratio, and the body's opcode counts. The count is
 static: a branch inside the loop (a posit decode, say) counts whether or
-not it runs. Needs the CUDA toolkit
+not it runs. Only kernels are listed; a device function that is not
+inlined (the sorted-segment kernel's one-row loop) is read inside the
+kernel that calls it. Needs the CUDA toolkit
 (``nvcc`` and ``cuobjdump``), so it runs where the kernels build.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import os
 import re
@@ -94,22 +98,27 @@ def _resolve(operands: str, labels: dict):
 
 
 def product_loop(body: list) -> dict | None:
-    """The innermost loop with the most significand products (IMAD.WIDE.U32
-    with RZ as the addend; address arithmetic adds a base) that stores
-    nothing to shared memory: its instruction count, products and opcode
-    counts."""
+    """The loop whose own body (its nested loops left out) forms the most
+    significand products (IMAD.WIDE.U32 with RZ as the addend; address
+    arithmetic adds a base) and stores fewer values to shared memory than
+    it forms products (so not a tile-load loop): its own instruction count,
+    products and opcode counts. A one-row block's chunk loop counts its
+    products of the B elements it keeps in flight and their reloads; the
+    loops nested in it (its A row's loads, and the k of a chunk past those
+    in flight) are left out."""
     loops = [(target, addr) for addr, op, target, _ in body
              if op.startswith("BRA") and target is not None and target <= addr]
-    inner = [(lo, hi) for lo, hi in loops
-             if not any((lo, hi) != (l2, h2) and lo <= l2 and h2 <= hi for l2, h2 in loops)]
     best = None
-    for lo, hi in inner:
-        ops = [op for addr, op, _, _ in body if lo <= addr <= hi]
+    for lo, hi in loops:
+        nested = [(l2, h2) for l2, h2 in loops if (l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi]
+        own = [(op, rest) for addr, op, _, rest in body
+               if lo <= addr <= hi and not any(l2 <= addr <= h2 for l2, h2 in nested)]
         products = sum(op.startswith("IMAD.WIDE.U32") and rest.strip().endswith("RZ")
-                       for addr, op, _, rest in body if lo <= addr <= hi)
-        if products == 0 or any(op.startswith("STS") for op in ops):
+                       for op, rest in own)
+        if products == 0 or sum(op.startswith("STS") for op, _ in own) >= products:
             continue
         if best is None or products > best["products"]:
+            ops = [op for op, _ in own]
             best = {"instructions": len(ops), "products": products,
                     "per_product": len(ops) / products,
                     "opcodes": dict(collections.Counter(o.split(".")[0] for o in ops)
@@ -134,6 +143,8 @@ def report(source: Path) -> list:
     usage = ptxas_usage(log)
     rows = []
     for name, body in sass_functions(sass).items():
+        if not template_args(name):
+            continue
         rows.append({"source": source.name, "kernel": name,
                      "template": template_args(name), **usage.get(name, {}),
                      "product_loop": product_loop(body)})
@@ -141,10 +152,12 @@ def report(source: Path) -> list:
 
 
 def main(argv: list) -> None:
-    sources = [Path(p) for p in argv] or [K._CSRC / "fdp_gemm.cu"]
-    for source in sources:
-        for row in report(source):
-            print(json.dumps(row), flush=True)
+    sources = [Path(p) for p in argv] or [K._CSRC / "fdp_gemm.cu",
+                                          K._CSRC / "fdp_ragged_gemm.cu"]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        for rows in pool.map(report, sources):
+            for row in rows:
+                print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

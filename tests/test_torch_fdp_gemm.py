@@ -254,18 +254,28 @@ def test_dense_launch_covers_every_register_width(num_limbs):
 
 
 def test_dense_tile_table_is_read_from_the_kernels_file():
-    """The launcher's tile table is the one the kernel includes
+    """The launcher's tile table is the one the kernels include
     (csrc/fdp_gemm_tiles.def): every capacity with its rows, columns and
-    blocks, and the shared-memory limit, and the kernel source includes
-    that file for its Tile<LC> table, its capacity switch and its limit."""
+    blocks, and the shared-memory limit. The shared tile body
+    (csrc/fdp_tile.cuh) includes that file for its Tile<LC> table, its
+    capacity switch and its limit; the dense and the sorted-segment kernels
+    include the tile body, and neither reads the table or defines a tile
+    of its own."""
     tiles, resident, limit = tk._dense_table()
     assert tiles == tk.DENSE_TILE and resident == tk.DENSE_RESIDENT
     assert tk.DENSE_CAPACITIES == (2, 4, 6, 8, 12, 16, 24, 32, 40)
     assert tiles[6] == (4, 2) and tiles[40] == (1, 1) and resident[8] == 2
     assert limit == tk.DENSE_SMEM_LIMIT == 48 * 1024
-    source = (tk._CSRC / "fdp_gemm.cu").read_text()
-    assert source.count('#include "fdp_gemm_tiles.def"') == 3
-    assert "struct Tile<" not in source.replace("struct Tile<lc>", "")
+    body = (tk._CSRC / "fdp_tile.cuh").read_text()
+    assert body.count('#include "fdp_gemm_tiles.def"') == 3
+    assert "struct Tile<" not in body.replace("struct Tile<lc>", "").replace(
+        "struct Tile;", "")
+    assert sorted(p.name for p in tk._CSRC.iterdir()
+                  if '#include "fdp_gemm_tiles.def"' in p.read_text()) == ["fdp_tile.cuh"]
+    for kernel in ("fdp_gemm.cu", "fdp_ragged_gemm.cu"):
+        source = (tk._CSRC / kernel).read_text()
+        assert '#include "fdp_tile.cuh"' in source and "fdp::fdp_tile<" in source
+        assert "struct Tile" not in source and "load_tile(" not in source
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 6, 64])
@@ -339,11 +349,12 @@ def test_dense_launch_splits_k_only_where_the_grid_is_small():
 
 
 def test_sass_report_reads_ptxas_and_the_product_loop():
-    """The SASS reader resolves labels, finds the innermost loop that forms
-    products and stores nothing to shared memory (not the tile-load loop),
-    and counts its instructions per product (a wide multiply with an addend
-    is address arithmetic, not a product); the ptxas reader takes registers
-    and spills per kernel."""
+    """The SASS reader resolves labels, finds the loop whose own body forms
+    the most products (not the tile-load loop, which stores as many values
+    to shared memory as it forms products; not an outer loop, whose nested
+    loops are left out of its body), and counts its instructions per
+    product (a wide multiply with an addend is address arithmetic, not a
+    product); the ptxas reader takes registers and spills per kernel."""
     from repro_torch.kernels import sass_report as S
 
     name = "_ZN12_GLOBAL__N_115fdp_gemm_kernelILi6ELb0EEEvPKj"
@@ -361,14 +372,25 @@ def test_sass_report_reads_ptxas_and_the_product_loop():
         /*0070*/                   IMAD.WIDE.U32 R6, R2, R3, RZ ;
         /*0078*/                   IMAD.WIDE.U32 R6, R2, 0x4, R8 ;
         /*0080*/              @!P2 BRA `(.L_x_2) ;
-        /*0090*/                   BRA 0x90 ;
-        /*00a0*/                   EXIT ;
+        /*0090*/                   STS.64 [R3], R4 ;
+        /*00a0*/                   IMAD.WIDE.U32 R4, R2, R3, RZ ;
+        /*00b0*/               @P3 BRA 0x10 ;
+        /*00c0*/                   BRA 0xc0 ;
+        /*00d0*/                   EXIT ;
 """
     body = S.sass_functions(sass)[name]
     assert [op for _, op, _, _ in body][:3] == ["LDC", "IMAD.WIDE.U32", "STS.64"]
     loop = S.product_loop(body)                 # the address multiply is no product
     assert loop["products"] == 2 and loop["instructions"] == 6 and loop["per_product"] == 3
     assert loop["opcodes"]["IMAD"] == 3 and loop["opcodes"]["SEL"] == 1
+    # the outer loop (0x10-0xb0) forms one product and one store in its own
+    # body, the nested loops' left out; with two more products there it
+    # forms the most, and its own body counts: STS, 3 IMAD, BRA
+    outer = sorted(body + [(0x98, "IMAD.WIDE.U32", None, " R6, R2, R3, RZ"),
+                           (0x9c, "IMAD.WIDE.U32", None, " R8, R2, R3, RZ")])
+    loop = S.product_loop(outer)
+    assert loop["products"] == 3 and loop["instructions"] == 5
+    assert loop["opcodes"] == {"IMAD": 3, "STS": 1, "BRA": 1}
     log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
            f"ptxas info    : Function properties for {name}\n"
            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"

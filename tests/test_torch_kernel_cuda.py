@@ -49,12 +49,35 @@ def test_kernel_bit_equal_to_plain_on_card():
 
 
 
+def _ragged_case(g, T, d, f, gs, tf, *, scale=1.0, wt=False):
+    """x (T, d) and w (E, d, f) on the card: w a strided view of every other
+    column, or with wt the transposed view of an (E, f, d) weight (the dX
+    call). Float inputs are not rounded to the format: the kernel and the
+    plain version decode IEEE formats from their f32 bits, so full f32
+    significands reach the register and RNE rounds nearly every product."""
+    x = torch.randn(T, d, generator=g) * scale
+    w = torch.randn(len(gs), f, d, generator=g) if wt else torch.randn(len(gs), d, 2 * f,
+                                                                        generator=g)
+    if isinstance(tf, tfmt.PositFormat):
+        x, w = tf.from_float(x), tf.from_float(w)
+    x, w = x.cuda(), w.cuda()
+    w = w.transpose(-1, -2) if wt else w[:, :, ::2]
+    return x, w, torch.tensor(gs, dtype=torch.int32, device="cuda")
+
+
 @pytest.mark.cuda
 def test_ragged_kernel_bit_equal_to_plain_on_card():
     """The sorted-segment kernel against its plain version: zero-size groups
-    (leading and trailing), rows past the total, a strided weight view, and
-    every format; then the MoE block under the kernel policy reads nothing
-    on the host (``set_sync_debug_mode("error")`` raises on any sync)."""
+    (leading and trailing), rows past the total, groups longer than a row
+    tile with partial last tiles, 1- and 2-row groups (one-row tiles), a
+    strided and a transposed weight view, register capacities 2, 4, 6, 12
+    and 32, a saturating narrow register fed products past its top limb,
+    RNE at a scale where every product rounds, and every format; the
+    one-row tiles (T = E, run by ``fdp::row_chunks``) in posit, with RNE
+    rounding and with the saturating narrow register too. Rows past the
+    total read 0.0 though ``torch.empty`` gave the output. Then the MoE
+    block under the kernel policy reads nothing on the host
+    (``set_sync_debug_mode("error")`` raises on any sync)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.configs import get_config
@@ -63,22 +86,50 @@ def test_ragged_kernel_bit_equal_to_plain_on_card():
     from repro_torch.models import moe as TM
 
     g = torch.Generator().manual_seed(1)
-    cases = [(50, 70, 40, [0, 9, 0, 14, 7, 0], "ieee_fp32", "paper_91bit"),
-             (24, 33, 9, [0, 0, 24], "bfloat16", "rne"),
-             (16, 64, 40, [5, 0, 11, 0], "posit16_1", "saturate")]
-    for T, d, f, gs, fmt_name, spec_name in cases:
-        tf = tfmt.get_format(fmt_name)
-        ts = tacc.AccumulatorSpec(**SPEC_ARGS[spec_name])
-        x, w = torch.randn(T, d, generator=g), torch.randn(len(gs), d, 2 * f, generator=g)
-        if isinstance(tf, tfmt.PositFormat):
-            x, w = tf.from_float(x), tf.from_float(w)
-        x, w = x.cuda(), w.cuda()[:, :, ::2]             # a strided view
-        sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    spec = tacc.AccumulatorSpec
+    fp32, bf16 = tfmt.get_format("ieee_fp32"), tfmt.get_format("bfloat16")
+    posit = tfmt.get_format("posit16_1")
+    p91, rne = spec(30, 30, -30), spec(30, 30, -30, round_mode="rne")
+    cases = [
+        ((50, 70, 40, [0, 9, 0, 14, 7, 0]), fp32, p91, {}),
+        ((24, 33, 9, [0, 0, 24]), bf16, rne, {}),
+        ((16, 64, 40, [5, 0, 11, 0]), posit, spec(2, 5, -18, overflow_mode="saturate"), {}),
+        ((150, 200, 72, [70, 0, 45, 35]), fp32, p91, {}),                 # partial tiles
+        ((16, 300, 100, [1, 2, 0, 1, 2, 2, 0, 1, 1, 2, 0, 1, 2, 1, 0, 0]), fp32, p91, {}),
+        ((96, 160, 72, [30, 0, 50, 16]), fp32, p91, dict(wt=True)),      # the dX view
+        ((40, 100, 37, [0, 17, 23]), fp32, spec(2, 5, -8), dict(scale=8.0)),      # 1 limb
+        ((64, 150, 45, [20, 0, 44]), fp32, spec(9, 6, -20), {}),                 # 3 limbs
+        ((40, 200, 40, [15, 0, 25]), fp32, spec(9, 6, -20, overflow_mode="saturate"),
+         dict(scale=3e6)),
+        ((24, 90, 19, [9, 0, 15]), bf16, spec(60, 60, -60), dict(scale=1e10)),  # 12 limbs
+        ((24, 170, 29, [0, 11, 13]), fp32, spec(100, 200, -100, round_mode="rne"),
+         dict(scale=1e20)),                                                      # 26 limbs
+        ((32, 120, 40, [0, 12, 20]), fp32, rne, dict(scale=1e-6)),   # every product rounds
+    ]
+    one_row = [                                                      # T = E: one-row tiles
+        ((16, 200, 70, [1, 2, 0, 1, 2, 1, 1, 0, 2, 1, 1, 0, 2, 1, 1, 0]), posit,
+         spec(2, 5, -18, overflow_mode="saturate"), {}),
+        ((16, 240, 70, [2, 1, 1, 0, 1, 2, 0, 1, 1, 2, 1, 1, 0, 2, 1, 0]), fp32, rne,
+         dict(scale=1e-6)),
+        ((16, 200, 40, [0, 1, 2, 1, 1, 0, 2, 2, 1, 1, 0, 1, 2, 1, 1, 0]), fp32,
+         spec(9, 6, -20, overflow_mode="saturate"), dict(scale=3e6)),  # every product past
+        ((16, 200, 40, [1, 1, 0, 2, 1, 1, 2, 0, 1, 1, 2, 1, 0, 1, 2, 0]), fp32,
+         spec(9, 6, -20, overflow_mode="saturate"), dict(scale=4e3)),  # about half the sums
+    ]
+    for (T, d, f, gs), _, ts, _ in one_row:
+        assert tk.ragged_launch(ts.num_limbs, T, len(gs), d, f, 132).tile[0] == 1
+    capacities = set()
+    for (T, d, f, gs), tf, ts, kw in cases + one_row:
+        x, w, sizes = _ragged_case(g, T, d, f, gs, tf, **kw)
         want = tk.fdp_ragged_gemm_plain(x, w, sizes, spec=ts, fmt=tf)
+        torch.cuda.empty_cache()
+        torch.full((T, f), float("nan"), device="cuda")  # what torch.empty may hand back
         got = tk.fdp_ragged_gemm(x, w, sizes, spec=ts, fmt=tf)
         torch.cuda.synchronize()
-        assert torch.equal(want, got), (T, d, f, gs, fmt_name, spec_name)
+        assert torch.equal(want, got), (T, d, f, gs, tf.name, ts.describe(), kw)
         assert not got[sum(gs):].any()
+        capacities.add(tk.ragged_launch(ts.num_limbs, T, len(gs), d, f, 132).lc)
+    assert {2, 4, 6, 12, 32} <= capacities
 
     cfg = get_config("dbrx-132b").reduced()
     block = TM.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.Generator("cuda").manual_seed(0),
@@ -96,6 +147,104 @@ def test_ragged_kernel_bit_equal_to_plain_on_card():
     torch.cuda.synchronize()
     assert out.shape == x.shape and bool(torch.isfinite(out).all())
     assert tk.fdp_ragged_gemm.launches == launches + 6
+
+
+def _ragged_launch_args(lib_calls: list):
+    """A stand-in for ``fdp_gemm.load`` whose sorted-segment entry point
+    records each call's layout (lc, tm, tx, ty, ks, bks) and launches the
+    real kernel."""
+    lib = tk.load()["fdp_ragged_gemm"]
+
+    class Recording:
+        def fdp_ragged_gemm_launch(self, *args):
+            lib_calls.append(args[-7:-1])
+            return lib.fdp_ragged_gemm_launch(*args)
+
+    return lambda: {"fdp_ragged_gemm": Recording()}
+
+
+@pytest.mark.cuda
+def test_ragged_kernel_every_layout_on_card():
+    """Every layout ``dense_layouts`` offers for a decode shape (16 rows in
+    16 groups: one-row tiles) and a prefill shape (256 rows in 16 groups),
+    launched through the C entry point, gives the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(5)
+    fp32 = tfmt.get_format("ieee_fp32")
+    ts = tacc.AccumulatorSpec(30, 30, -30)
+    lib = tk.load()["fdp_ragged_gemm"]
+    stream = torch.cuda.current_stream().cuda_stream
+    numerics = tk._numerics_args(ts, fp32)
+    for T, d, f, gs in ((16, 256, 96, [2, 0, 1, 1, 2, 0, 1, 1, 1, 2, 0, 1, 1, 1, 1, 1]),
+                        (256, 256, 96, [9, 30, 0, 17, 12, 25, 3, 20, 16, 11, 14, 22, 0,
+                                        31, 26, 20])):
+        x, w, sizes = _ragged_case(g, T, d, f, gs, fp32)
+        want = tk.fdp_ragged_gemm_plain(x, w, sizes, spec=ts, fmt=fp32)
+        lays = list(tk.dense_layouts(ts.num_limbs, -(-T // len(gs)), f, d))
+        assert tk.ragged_launch(ts.num_limbs, T, len(gs), d, f, 132) in lays
+        for lay in lays:
+            out = torch.full((T, f), float("nan"), device="cuda")
+            err = lib.fdp_ragged_gemm_launch(
+                x.data_ptr(), w.data_ptr(), sizes.data_ptr(), out.data_ptr(), T, len(gs), d,
+                f, *x.stride(), *w.stride(), *numerics, lay.lc, lay.tm, lay.tx, lay.ty,
+                lay.ks, lay.bks, stream)
+            torch.cuda.synchronize()
+            assert err == 0 and torch.equal(out, want), (T, lay)
+
+
+@pytest.mark.cuda
+def test_ragged_layout_ignores_the_group_sizes_on_card(monkeypatch):
+    """Two routings of one shape (all rows in one group; one row a group,
+    some groups empty, the total short of T) launch with the same layout,
+    and both give the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(6)
+    fp32 = tfmt.get_format("ieee_fp32")
+    ts = tacc.AccumulatorSpec(30, 30, -30)
+    calls = []
+    monkeypatch.setattr(tk, "load", _ragged_launch_args(calls))
+    for gs in ([0, 0, 40, 0, 0, 0, 0, 0], [1, 1, 0, 1, 1, 0, 1, 1]):
+        x, w, sizes = _ragged_case(g, 40, 64, 48, gs, fp32)
+        got = tk.fdp_ragged_gemm(x, w, sizes, spec=ts, fmt=fp32)
+        assert torch.equal(got, tk.fdp_ragged_gemm_plain(x, w, sizes, spec=ts, fmt=fp32)), gs
+    assert len(calls) == 2 and calls[0] == calls[1]
+
+
+@pytest.mark.cuda
+def test_ragged_wrapper_raises_on_a_failed_launch(monkeypatch):
+    """The C entry point refuses a thread layout that is not 256 threads, a
+    capacity below the spec's limbs or not in its table, and a thread tile
+    of rows its capacity lacks; the wrapper raises on a non-zero code
+    instead of falling back to the plain version, and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = tacc.AccumulatorSpec(30, 30, -30)
+    x = torch.randn(4, 8, device="cuda")
+    w = torch.randn(2, 8, 4, device="cuda")
+    sizes = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
+    out = torch.empty(4, 4, device="cuda")
+    lib = tk.load()["fdp_ragged_gemm"]
+    stream = torch.cuda.current_stream().cuda_stream
+    numerics = tk._numerics_args(spec, tfmt.FP32)
+    for lc, tm, tx, ty, ks, bks in ((6, 4, 16, 1, 8, 1), (4, 4, 2, 1, 128, 1),
+                                    (7, 4, 2, 1, 128, 1), (6, 8, 2, 1, 128, 1),
+                                    (6, 3, 2, 1, 128, 1), (24, 2, 2, 1, 128, 1)):
+        err = lib.fdp_ragged_gemm_launch(x.data_ptr(), w.data_ptr(), sizes.data_ptr(),
+                                         out.data_ptr(), 4, 2, 8, 4, *x.stride(), *w.stride(),
+                                         *numerics, lc, tm, tx, ty, ks, bks, stream)
+        assert err != 0, (lc, tm, tx, ty, ks, bks)
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1                       # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tk, "load", lambda: {"fdp_ragged_gemm": Refusing()})
+    before = tk.fdp_ragged_gemm.launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tk.fdp_ragged_gemm(x, w, sizes, spec=spec, fmt=tfmt.FP32)
+    assert tk.fdp_ragged_gemm.launches == before
 
 
 @pytest.mark.cuda

@@ -12,7 +12,12 @@ and ``chip_smoke.py``.
 
 JAX's ``simulate`` mode is compiled anew for every spec and shape, so it is
 run for the f32 cases only; ``tests/test_ragged_segment.py`` holds it
-bit-equal to the interpret-mode kernel, against which every case runs."""
+bit-equal to the interpret-mode kernel, against which every case runs.
+
+The kernel's launch is chosen on the host from the shapes alone
+(``ragged_launch``), and each block finds its tile of one group's rows on
+the device; the last tests hold the launcher to decode shapes and a Python
+copy of the device's tile scan to the grid for many routings."""
 
 import numpy as np
 import pytest
@@ -174,3 +179,107 @@ def test_ragged_wrapper_checks_its_inputs():
     out = tops.fdp_ragged_gemm(x + 1, w + 1, torch.tensor([1, 2]), spec=ts,
                                plan=TD.GemmPlan(8, 8, 8))
     assert out.tolist() == [[8.0] * 3] * 3 + [[0.0] * 3]
+
+
+H100_SMS = 132              # the multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("num_limbs", [1, 3, 6, 12, 26, 40])
+def test_ragged_launch_gives_decode_calls_one_row_tiles(num_limbs):
+    """A decode step routes T = E rows (dbrx-132b: 4 tokens x top-4 into 16
+    experts), a group or two each: the launch gives a thread and a block
+    one row, whatever the register's capacity, and splits K where the
+    columns alone do not fill the card. A training step (1024 rows in 16
+    groups) gets the capacity's most rows a thread up to 8 limbs."""
+    for T, d, f in ((16, 6144, 10752), (16, 10752, 6144), (8, 64, 40)):
+        lay = tk.ragged_launch(num_limbs, T, T, d, f, H100_SMS)
+        assert lay.tm == 1 and lay.tile[0] == 1 and lay.lc >= num_limbs
+        assert lay == tk.dense_launch(num_limbs, T, 1, f, d, H100_SMS)
+    assert tk.ragged_launch(num_limbs, 16, 16, 6144, 10752, H100_SMS).ks > 1
+    train = tk.ragged_launch(num_limbs, 1024, 16, 6144, 10752, H100_SMS)
+    assert train.tm == tk.DENSE_TILE[train.lc][0]
+    if num_limbs <= 8:
+        assert train.tm == 4 and train.ks == 1
+
+
+def _row_tiles(gs, T, bm, blocks):
+    """The device's tile scan (``fdp_ragged_gemm_kernel``), block by block:
+    (segment, first row, end row) of each block's tile, None past the real
+    tiles. Segment len(gs) is the rows past the total, up to T."""
+    out = []
+    for block in range(blocks):
+        tile, end, found = block, 0, None
+        for g in range(len(gs) + 1):
+            lo = min(end, T)
+            if g < len(gs):
+                end += gs[g]
+            hi = T if g == len(gs) else min(end, T)
+            tiles = -(-(hi - lo) // bm) if hi > lo else 0
+            if tile < tiles:
+                found = (g, lo + tile * bm, min(lo + (tile + 1) * bm, hi))
+                break
+            tile -= tiles
+        out.append(found)
+    return out
+
+
+def _routings():
+    """(name, T, group sizes): the edge cases, and top-k routings drawn
+    from a seed (4 of 16 experts a token, and the rows of a batch cut
+    short or run over)."""
+    cases = [("all rows in one group", 64, [0, 0, 64, 0]),
+             ("one row a group", 16, [1] * 16),
+             ("empty groups leading, inner and trailing", 40, [0, 0, 9, 0, 14, 0, 7, 0]),
+             ("sum < T", 50, [7, 0, 13, 0, 3]),
+             ("sum > T", 20, [9, 0, 8, 6, 5]),
+             ("every group empty", 12, [0, 0, 0]),
+             ("no group", 5, [])]
+    rng = np.random.default_rng(17)
+    for i in range(24):
+        tokens, E = int(rng.integers(1, 300)), int(rng.choice([4, 8, 16, 64]))
+        ids = np.stack([rng.permutation(E)[:min(4, E)] for _ in range(tokens)])
+        gs = np.bincount(ids.reshape(-1), minlength=E).tolist()
+        T = sum(gs) + int(rng.integers(-5, 6)) if i % 3 else sum(gs)
+        cases.append((f"draw {i}", max(T, 1), gs))
+    return cases
+
+
+def test_ragged_launch_reads_only_shapes():
+    """The launch is a function of the spec's limbs, the shapes and the
+    card: ``ragged_launch`` takes no group sizes, so the host never waits
+    for the router, and one layout serves every routing of a shape."""
+    import inspect
+
+    assert list(inspect.signature(tk.ragged_launch).parameters) == [
+        "num_limbs", "T", "E", "d", "f", "sms"]
+    lay = tk.ragged_launch(6, 1024, 16, 6144, 10752, H100_SMS)
+    assert tk.ragged_grid(lay, 1024, 16, 10752) == (1024 // lay.tile[0] + 16,
+                                                   -(-10752 // lay.tile[1]))
+
+
+@pytest.mark.parametrize("name,T,gs", _routings(), ids=[c[0] for c in _routings()])
+def test_ragged_row_tiles_fit_the_grid(name, T, gs):
+    """For every routing and every block height the launcher may give
+    (1 to 32 rows, and ``ragged_launch``'s own pick): the scan's tiles lie
+    each inside one segment, cover every row of [0, T) exactly once (the
+    rows past the total in segment E), and number no more than the grid's
+    ceil(T / BM) + E row tiles; the blocks past them find no tile."""
+    E = len(gs)
+    total = min(T, sum(gs))
+    lay = tk.ragged_launch(6, T, E, 96, 64, H100_SMS)
+    for bm in sorted({1, 2, 4, 8, 16, 32, lay.tile[0]}):
+        rows = -(-T // bm) + E
+        if bm == lay.tile[0]:
+            assert tk.ragged_grid(lay, T, E, 64)[0] == rows
+        tiles = _row_tiles(gs, T, bm, rows + 3)
+        real = [t for t in tiles if t is not None]
+        assert tiles[len(real):] == [None] * (rows + 3 - len(real))
+        assert len(real) <= rows
+        covered = np.zeros(T, dtype=int)
+        starts = np.cumsum([0] + gs)
+        for g, r0, r1 in real:
+            assert 0 < r1 - r0 <= bm
+            lo, hi = (min(starts[g], T), min(starts[g + 1], T)) if g < E else (total, T)
+            assert lo <= r0 < r1 <= hi
+            covered[r0:r1] += 1
+        assert covered.tolist() == [1] * T
