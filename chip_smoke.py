@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the final line):
   1. the card (nvidia-smi name and power limit); build the FDP kernels from
      ``src/repro_torch/kernels/csrc/`` (one nvcc per source, in parallel)
      and print the seconds; beside the build, ``kernels.sass_report``
-     compiles the two tiled kernels (dense and sorted-segment) with
-     ``-Xptxas -v`` and prints each instantiation's registers, spills and
-     SASS instructions a product;
+     compiles the three tiled kernels (dense, sorted-segment forward and
+     weight gradient) with ``-Xptxas -v`` and prints each instantiation's
+     registers, spills and SASS instructions a product;
   2. the dense FDP GEMM kernel against its plain PyTorch version on the
      card, torch.equal, over formats, round/overflow modes, register
      capacities 2, 4, 6, 12 and 32 (1, 3, 6, 12 and 26 limbs; a saturating
@@ -60,9 +60,14 @@ Phases (any failure exits non-zero before the final line):
      against its plain version on the card, torch.equal, over formats,
      round/overflow modes, zero-size groups (leading, inner, trailing, all),
      one group holding every row, rows past the total, one group longer
-     than SAFE_CHUNK rows, and the three full-width expert shapes of a
-     dbrx-132b training step (4 x 64 tokens, 1024 routed rows) on 64
-     columns of g, timed on the whole shape; then the dense and
+     than SAFE_CHUNK rows, groups of 1, 31, 33 and 65 rows (the last chunk
+     cut short), register capacities 2, 4, 6, 12 and 32 (a saturating
+     3-limb register fed products past its top limb), RNE where every
+     product rounds, and the three full-width expert shapes of a dbrx-132b
+     training step (4 x 64 tokens, 1024 routed rows) on 64 columns of g,
+     timed on the whole shape at 91 bits and at <9,6,-20> on the same
+     inputs, beside their bounds, and at moe_in's shape with no rows routed
+     (the read-out and store floor) and one row a group; then the dense and
      sorted-segment kernels at that step's backward shapes, on slices: the
      LM head's dA and dB, the router's dB (the dense kernel timed there at
      both specs), and moe_in's dX against the transposed expert weights;
@@ -115,7 +120,8 @@ and of g, and one product per (row in a group, d, f)) over the card's int32
 rate: 132 SMs x 64 INT32 lanes (Hopper white paper) x 1.98 GHz (max SM
 clock) = 16.73e12 op/s. The count leaves out the read-out of each output
 (one per dW element, E*d*f of them), which with a few dozen rows per group
-is a real share of the weight-gradient kernel's work.
+is a real share of the weight-gradient kernel's work (phase 8 times it
+apart).
 """
 
 from __future__ import annotations
@@ -250,8 +256,9 @@ def main() -> None:
     print(smi, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
-    # what ptxas made of the two tiled kernels, dense and sorted-segment
-    # (registers, spills, instructions a product), compiled beside the build
+    # what ptxas made of the three tiled kernels, dense, sorted-segment
+    # forward and weight gradient (registers, spills, instructions a
+    # product), compiled beside the build
     sass_proc = subprocess.Popen([sys.executable, "-m", "repro_torch.kernels.sass_report"],
                                  cwd=ROOT, env={**os.environ, "PYTHONPATH": src},
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -262,7 +269,9 @@ def main() -> None:
     sass_out, sass_err = sass_proc.communicate()
     if sass_proc.returncode != 0:
         fail(f"sass_report failed: {sass_err[-2000:]}")
-    sass = {"fdp_gemm.cu": [], "fdp_ragged_gemm.cu": []}
+    sass = {"fdp_gemm.cu": [], "fdp_ragged_gemm.cu": [], "fdp_ragged_dw.cu": []}
+    sass_kind = {"fdp_gemm.cu": "dense", "fdp_ragged_gemm.cu": "sorted-segment",
+                 "fdp_ragged_dw.cu": "weight-gradient"}
     for line in sass_out.splitlines():
         r = json.loads(line)
         lc, tm, rne, masked = r["template"]
@@ -273,15 +282,14 @@ def main() -> None:
                                   "loop_instructions": loop.get("instructions"),
                                   "loop_products": loop.get("products"),
                                   "instructions_per_product": loop.get("per_product")})
-        kind = "dense" if r["source"] == "fdp_gemm.cu" else "sorted-segment"
-        log(f"{kind} kernel LC={lc} TM={tm} rne={rne} masked={masked}: {r['registers']} "
-            f"registers, "
+        log(f"{sass_kind[r['source']]} kernel LC={lc} TM={tm} rne={rne} masked={masked}: "
+            f"{r['registers']} registers, "
             f"spills {r['spill_stores']}/{r['spill_loads']} bytes; product loop "
             f"{loop.get('instructions')} instructions for {loop.get('products')} products = "
             f"{loop.get('per_product', 0):.2f} a product")
     if any(len(rows) != 76 for rows in sass.values()):
         fail(f"sass_report read {[len(rows) for rows in sass.values()]} instantiations of "
-             f"the dense and sorted-segment kernels, not 76 each")
+             f"the dense, sorted-segment and weight-gradient kernels, not 76 each")
 
     # -- 2. kernels vs plain versions on the card ----------------------------
     P91 = AccumulatorSpec.paper_91bit()
@@ -865,11 +873,23 @@ def main() -> None:
         ("fp32 rows past the total (28 of 48)", (48, 96, 40, [7, 0, 13, 0, 0]), FP32,
          P91, {}),
         (f"fp32 one group of {long_rows} rows (9 x SAFE_CHUNK + 517), positive, so "
-         f"carries normalize inside the row loop", (long_rows + 40, 4, 32,
-                                                     [0, long_rows, 0]), FP32, P91,
-         {"positive": True}),
+         f"one register enters them all", (long_rows + 40, 4, 32, [0, long_rows, 0]), FP32,
+         P91, {"positive": True}),
+        ("fp32 groups of 1, 31, 33 and 65 rows (the last chunk cut short)",
+         (140, 70, 90, [1, 31, 0, 33, 65]), FP32, P91, {}),
+        ("fp32 rne, every product rounded, groups of 31 and 33 rows",
+         (72, 120, 40, [0, 31, 33]), FP32, RNE, {"x_scale": 1e-6}),
+        ("fp32 1-limb <2,5,-8> (capacity 2)", (60, 100, 37, [0, 17, 33]), FP32, ONE,
+         {"x_scale": 8.0}),
+        ("fp32 <9,6,-20> (3 limbs, capacity 4)", (80, 150, 45, [31, 0, 44]), FP32, F3, {}),
+        ("fp32 saturate <9,6,-20>, products past the top limb", (70, 200, 40, [33, 0, 31]),
+         FP32, F3_SAT, {"x_scale": 3e6}),
+        ("fp32 <60,60,-60> (12 limbs, capacity 12)", (40, 90, 19, [9, 0, 31]), FP32, WIDE12,
+         {"x_scale": 1e10}),
+        ("fp32 401-bit rne (26 limbs, capacity 32)", (40, 170, 29, [0, 1, 33]), FP32, WIDE,
+         {"x_scale": 1e20}),
     ]
-    dw_err = 0.0
+    dw_err, dw_capacities = 0.0, set()
     for name, (T, dd, ff, gs), fmt, spec, kw in dw_cases:
         x, g = dw_operands(T, dd, ff, fmt, **kw)
         sizes = torch.tensor(gs, dtype=torch.int32, device=dev)
@@ -881,44 +901,83 @@ def main() -> None:
             fail(f"weight-gradient kernel != plain for {name}: max |diff| {err}")
         if any(got[e].any() for e, n in enumerate(gs) if n == 0):
             fail(f"a zero-size group's dW is not exactly zero for {name}")
-        extra = f", {n_saturated(got, spec)} outputs saturated" if spec is SAT else ""
+        saturating = spec.overflow_mode == "saturate"
+        extra = f", {n_saturated(got, spec)} outputs saturated" if saturating else ""
         dw_err = max(dw_err, err)
+        lay = K.ragged_dw_launch(spec.num_limbs, T, len(gs), dd, ff, sms)
+        dw_capacities.add(lay.lc)
         log(f"weight-gradient kernel == plain (torch.equal): {name} x {tuple(x.shape)} "
-            f"g {tuple(g.shape)} groups {gs} {fmt.name} {spec.describe()}{extra}")
+            f"g {tuple(g.shape)} groups {gs} {fmt.name} {spec.describe()}{extra}; capacity "
+            f"{lay.lc}, tile {lay.tile}, {lay.tm}x{lay.tn} outputs a thread, K split {lay.ks}")
+    if not {2, 4, 6, 12, 32} <= dw_capacities:
+        fail(f"the weight-gradient cases ran capacities {sorted(dw_capacities)}, not all of "
+             f"2, 4, 6, 12 and 32")
     DW_SITES = {"moe_in": (T_rows, md, mf), "moe_gate": (T_rows, md, mf),
                 "moe_out": (T_rows, mf, md)}
     dw_sites = {}
     for site, (T, dd, ff) in DW_SITES.items():
         x, g = dw_operands(T, dd, ff, FP32)
         sizes = torch.tensor(gs_train, dtype=torch.int32, device=dev)
-        # the plain version on 64 columns of g (a strided view for moe_gate),
-        # the kernel timed on the whole shape
+        # the timed call itself, on the whole shape at 91 bits and <9,6,-20>:
+        # each column of dW depends only on the same column of g, so 64 of
+        # its columns (strided for moe_gate) are held against the plain
+        # version on those columns of g
         cols = slice(None, None, ff // 64) if site == "moe_gate" else slice(0, 64)
-        want = K.fdp_ragged_dw_plain(x, g[:, cols], sizes, spec=P91, fmt=FP32)
-        got = K.fdp_ragged_dw(x, g[:, cols], sizes, spec=P91, fmt=FP32)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"weight-gradient kernel != plain at {site}'s training shape: max |diff| "
-                 f"{(got - want).abs().max().item()}")
+        for spec in (P91, F3):
+            got = K.fdp_ragged_dw(x, g, sizes, spec=spec, fmt=FP32)
+            want = K.fdp_ragged_dw_plain(x, g[:, cols], sizes, spec=spec, fmt=FP32)
+            torch.cuda.synchronize()
+            if not torch.equal(got[..., cols], want):
+                fail(f"weight-gradient kernel != plain at {site}'s training shape under "
+                     f"{spec.describe()}: max |diff| "
+                     f"{(got[..., cols] - want).abs().max().item()}")
+            del got, want
+            torch.cuda.empty_cache()
         nbytes, nops = dw_work(T, dd, ff, gs_train)
         dw_sites[site] = {
             "shape": [T, dd, ff], "groups": gs_train,
+            "layout": dataclasses.asdict(K.ragged_dw_launch(P91.num_limbs, T, len(gs_train),
+                                                            dd, ff, sms)),
+            "layout_fig3": dataclasses.asdict(K.ragged_dw_launch(F3.num_limbs, T,
+                                                                 len(gs_train), dd, ff, sms)),
             "ms": cuda_ms(torch, lambda: K.fdp_ragged_dw(x, g, sizes, spec=P91, fmt=FP32),
-                          reps=2),
+                          reps=3),
+            "ms_fig3": cuda_ms(torch, lambda: K.fdp_ragged_dw(x, g, sizes, spec=F3, fmt=FP32),
+                               reps=3),
             "plain_ms": cuda_ms(torch, lambda: K.fdp_ragged_dw_plain(
                 x, g[:, cols], sizes, spec=P91, fmt=FP32), reps=1),
             "plain_at": f"64 columns of g ({'strided' if site == 'moe_gate' else 'the first'})",
+            "checked": "the timed call (layout and layout_fig3, the whole shape), its "
+                       "plain_at columns torch.equal to the plain version at both specs",
             "outputs": len(gs_train) * dd * ff,
             "int32_ops_per_product": nops / (T * dd * ff), **bound(nbytes, nops)}
         log(f"weight-gradient kernel == plain (torch.equal): {site} at its training shape, "
-            f"x {tuple(x.shape)} g {tuple(g.shape)} on {dw_sites[site]['plain_at']}, "
-            f"groups {gs_train}")
+            f"x {tuple(x.shape)} g {tuple(g.shape)}, the timed call at {P91.describe()} "
+            f"(capacity {dw_sites[site]['layout']['lc']}) and {F3.describe()} (capacity "
+            f"{dw_sites[site]['layout_fig3']['lc']}) checked on "
+            f"{dw_sites[site]['plain_at']}, groups {gs_train}")
         r = dw_sites[site]
         log(f"bound at dbrx {site}@bwd.dB: {r['bound_ms']:.4f} ms ({r['bound_by']}); kernel "
-            f"{r['ms']:.4f} ms on the whole shape = {100 * r['bound_ms'] / r['ms']:.1f}% of "
-            f"bound; plain {r['plain_ms']:.2f} ms on {r['plain_at']}")
-        del x, g, want, got
+            f"{P91.describe()} {r['ms']:.4f} ms on the whole shape = "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound; {F3.describe()} "
+            f"{r['ms_fig3']:.4f} ms = {r['ms_fig3'] / r['ms']:.3f}x; plain "
+            f"{r['plain_ms']:.2f} ms on {r['plain_at']}")
+        del x, g
         torch.cuda.empty_cache()
+    # the read-out apart: moe_in's shape with no rows routed (every register
+    # zero: the read-out's floor and the stores) and one row a group (one
+    # product an output beside a full read-out), at 91 bits
+    T, dd, ff = DW_SITES["moe_in"]
+    x, g = dw_operands(T, dd, ff, FP32)
+    dw_readout = {}
+    for label, gs in (("no rows routed", [0] * mE), ("one row a group", [1] * mE)):
+        sizes = torch.tensor(gs, dtype=torch.int32, device=dev)
+        ms = cuda_ms(torch, lambda: K.fdp_ragged_dw(x, g, sizes, spec=P91, fmt=FP32), reps=3)
+        dw_readout[label] = {"groups": gs, "ms": ms, "share": ms / dw_sites["moe_in"]["ms"]}
+        log(f"weight-gradient kernel at moe_in's shape, {label}: {ms:.4f} ms = "
+            f"{100 * ms / dw_sites['moe_in']['ms']:.1f}% of the routed launch")
+    del x, g
+    torch.cuda.empty_cache()
 
     # kernels 1 and 3 at the step's backward shapes, the plain version on slices
     mV = tcfg.padded_vocab
@@ -1453,7 +1512,7 @@ def main() -> None:
         "bound_by": dw_in["bound_by"], "library_ms": None,
         "at": f"dbrx-132b moe_in@bwd.dB {tuple(dw_in['shape'])} groups {dw_in['groups']} "
               f"fp32 {P91.describe()}; plain_ms on {dw_in['plain_at']}",
-        "sites": dw_sites,
+        "sites": dw_sites, "readout": dw_readout, "sass": sass["fdp_ragged_dw.cu"],
         "dbrx_train": train, "dbrx_1layer_grads_pallas_vs_simulate": grads_eq,
     }, {
         "name": "fdp_gemm_looped", "route": "cuda",

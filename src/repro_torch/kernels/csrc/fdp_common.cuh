@@ -1,11 +1,11 @@
 // Device math shared by the FDP kernels: decode to (sign, mant, exp); the
-// limb register of the weight-gradient and seed-order kernels
-// (fdp_ragged_dw.cu, fdp_gemm_looped.cu: exact product entry into int32
-// limbs, carry normalization every SAFE_CHUNK products); the word register
-// of the tiled kernels (fdp_tile.cuh, for fdp_gemm.cu and
-// fdp_ragged_gemm.cu); and the W-bit wrap/saturate read-out with one RNE
-// rounding to f32 that both registers end in. Bit-identical to
-// repro.core.fdp.fdp_gemm for every format, round mode and overflow mode.
+// limb register of the seed-order kernel (fdp_gemm_looped.cu: exact product
+// entry into int32 limbs, carry normalization every SAFE_CHUNK products);
+// the word register of the tiled kernels (fdp_tile.cuh, for fdp_gemm.cu,
+// fdp_ragged_gemm.cu and fdp_ragged_dw.cu); and the W-bit wrap/saturate
+// read-out with one RNE rounding to f32 that both registers end in.
+// Bit-identical to repro.core.fdp.fdp_gemm for every format, round mode and
+// overflow mode.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,7 +15,6 @@ namespace fdp {
 
 constexpr int LIMB_BITS = 16;
 constexpr uint32_t LIMB_MASK = 0xFFFFu;
-constexpr int TILE_N = 32;
 constexpr int SAFE_CHUNK = 1 << 13;
 
 struct Spec {

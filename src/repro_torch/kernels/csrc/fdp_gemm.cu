@@ -66,8 +66,9 @@
 //
 // The block tile's body (decode, products, K-split tree, read-out) is
 // fdp::fdp_tile in csrc/fdp_tile.cuh, shared with the sorted-segment
-// forward kernel (fdp_ragged_gemm.cu); this file maps a block to its batch
-// element, row tile and column tile.
+// forward kernel (fdp_ragged_gemm.cu) and weight gradient
+// (fdp_ragged_dw.cu); this file maps a block to its batch element, row tile
+// and column tile.
 
 #include "fdp_tile.cuh"
 

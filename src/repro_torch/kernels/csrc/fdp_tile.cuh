@@ -1,7 +1,8 @@
 // The output-tile body of the tiled FDP kernels, shared by the dense kernel
-// (fdp_gemm.cu) and the sorted-segment forward kernel (fdp_ragged_gemm.cu):
-// each __global__ kernel finds its block's operand bases, row window and
-// column tile, and calls fdp::fdp_tile, which computes
+// (fdp_gemm.cu), the sorted-segment forward kernel (fdp_ragged_gemm.cu) and
+// the sorted-segment weight gradient (fdp_ragged_dw.cu): each __global__
+// kernel finds its block's operand bases, row window and column tile, and
+// calls fdp::fdp_tile, which computes
 //
 //   C[m, n] = round_f32( sum_k  q(A[m, k] * B[k, n]) )   r0 <= m < rlim, n0 <= n < N
 //
@@ -12,7 +13,9 @@
 //   (BK x BN) once into shared memory as (significand | sign << 31,
 //   exponent); A's exponent already has lsb taken off. Loads go along
 //   whichever dimension has unit stride, so transposed views read
-//   coalesced. Rows past `rows`, columns past N and k past K decode to 0.
+//   coalesced. Rows past `rows`, columns past N and k past K decode to 0;
+//   with CLIP_K the last chunk's k loop also stops at K, so no product is
+//   formed for them (the weight gradient, whose K is a group's few rows).
 // - Each thread owns TM rows x TN columns of outputs, each a word register
 //   of NW = LC/2 + 1 32-bit words (fdp::add_product_words: two shifts a
 //   word and one add-with-carry chain, no carry ever pending).
@@ -234,8 +237,10 @@ __device__ __noinline__ void row_chunks(uint32_t (&out)[1][TN][NW], const uint32
 // registers held across the chunk loop.)
 //
 // ROW > 0 (TM = 1): a block of one row runs row_chunks, ROW B elements a
-// column and 2 A elements a thread in flight.
-template <int LC, int TM, bool RNE, bool MASKED, int ROW = 0>
+// column and 2 A elements a thread in flight. CLIP_K: each slice's k loop
+// stops at K in the last chunk (off for the dense and forward kernels,
+// whose K is long and whose code stays as it was).
+template <int LC, int TM, bool RNE, bool MASKED, int ROW = 0, bool CLIP_K = false>
 __device__ __forceinline__ void fdp_tile(const uint32_t* __restrict__ A, long long sam,
                                          long long sak, int r0, int rlim,
                                          const uint32_t* __restrict__ B, long long sbk,
@@ -289,7 +294,8 @@ __device__ __forceinline__ void fdp_tile(const uint32_t* __restrict__ A, long lo
     load_tile(sA, A, r0, k0, rlim, K, bm_log, bk_log, sam, sak, a_m_fast, fmt, spec.lsb);
     load_tile(sB, B, n0, k0, N, K, bn_log, bk_log, sbn, sbk, !b_k_fast, fmt, 0);
     __syncthreads();
-    for (int kk = slice * BKS, kend = kk + BKS; kk < kend; ++kk) {
+    for (int kk = slice * BKS, kend = CLIP_K ? min(kk + BKS, K - k0) : kk + BKS; kk < kend;
+         ++kk) {
       uint32_t ma[TM], sa[TM], mb[TN], sb[TN];
       int ea[TM], eb[TN];
       load_decoded<TM>(a_at + kk * BM, ma, sa, ea);        // this thread's rows

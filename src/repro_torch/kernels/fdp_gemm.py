@@ -25,7 +25,7 @@ the device, so no tile table is built and the host never reads the sizes.
 sorted-segment MoE weight gradient: ``x (T, d)``, ``g (T, f)`` rows sorted by
 group -> ``dW (E, d, f)`` f32, ``dW[e] = x[rows of e]ᵀ @ g[rows of e]``, exact
 zeros for a zero-size group. It replaces the Pallas body
-``fdp_ragged_dw_kernel`` (through ``fdp_ragged_dw_pallas``); each thread
+``fdp_ragged_dw_kernel`` (through ``fdp_ragged_dw_pallas``); each block
 finds its group's row window from the group sizes on the device.
 
 What bounds all four on the card: int32 CUDA-core operations per exact product
@@ -52,15 +52,16 @@ include and ``dense_launch`` reads.
 The sorted-segment forward (``csrc/fdp_ragged_gemm.cu``) runs the same tile
 body (``csrc/fdp_tile.cuh``) on tiles of one group's rows against that
 group's weights, found on the device; ``ragged_launch`` picks its layout
-from the shapes alone, as the dense layout for E groups of T/E rows.
+from the shapes alone, as the dense layout for E groups of T/E rows. The
+weight gradient (``csrc/fdp_ragged_dw.cu``) runs it too, a block on one
+group's window: ``dW[e]`` is the dense ``x_eᵀ @ g_e`` of depth ``n_e``,
+whose last chunk stops at the group's last row; ``ragged_dw_launch`` picks
+its layout as the dense layout for E groups (the batch) of d rows and f
+columns, T/E deep.
 
-The other two still spend more operations than the function needs: the
-weight gradient (whose device math is the limb register of
-``csrc/fdp_common.cuh``) decodes both operands per product and places each
-product by compare-and-select over every limb, from 6 limbs up; its K is a
-group's few rows and its outputs number E*d*f, so each output has one
-thread. The seed-order kernel keeps the seed's per-k order on purpose, one
-thread per output.
+The seed-order kernel still spends more operations than the function
+needs, on purpose: it keeps the seed's per-k order, one thread per output,
+with the limb register of ``csrc/fdp_common.cuh``.
 
 On CPU tensors the wrappers run the plain PyTorch versions
 (``fdp_gemm_plain``, ``fdp_ragged_gemm_plain``, ``fdp_ragged_dw_plain``: the
@@ -139,7 +140,7 @@ _ENTRIES = {
                         + [ctypes.c_void_p]),
     "fdp_ragged_dw": ("fdp_ragged_dw_launch",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                      + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 8
+                      + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 14
                       + [ctypes.c_void_p]),
 }
 # The launch counters are read-modify-written from the caller's thread and,
@@ -370,6 +371,17 @@ def ragged_launch(num_limbs: int, T: int, E: int, d: int, f: int, sms: int) -> D
     return dense_launch(num_limbs, max(E, 1), max(1, -(-T // max(E, 1))), f, d, sms)
 
 
+def ragged_dw_launch(num_limbs: int, T: int, E: int, d: int, f: int, sms: int) -> DenseLaunch:
+    """The weight-gradient kernel's launch for ``x (T, d)`` and ``g (T, f)``
+    in E groups at ``num_limbs`` limbs on a card of ``sms`` multiprocessors:
+    ``dense_launch`` for E products (the batch) of d rows and f columns,
+    ceil(T / E) deep (the rows a group holds on average). As for
+    ``ragged_launch``, the group sizes stay on the device, so the shapes are
+    all it knows. Its grid is ``grid(E, d, f)``: (column tiles, row tiles,
+    groups)."""
+    return dense_launch(num_limbs, max(E, 1), d, f, max(1, -(-T // max(E, 1))), sms)
+
+
 def ragged_grid(lay: DenseLaunch, T: int, E: int, f: int) -> tuple:
     """The sorted-segment kernel's grid: (row tiles, column tiles). The E
     groups and the rows past their total are E + 1 segments of T rows, each
@@ -597,8 +609,11 @@ def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor, *
     ``sum(group_sizes)`` add nothing.
 
     ``x`` and ``g`` may have any strides. On CUDA tensors the kernel reads
-    ``group_sizes`` on the device and the launch is counted in
-    ``fdp_ragged_dw.launches``; CPU tensors run ``fdp_ragged_dw_plain``."""
+    ``group_sizes`` on the device (the host never waits for it), with
+    ``ragged_dw_launch``'s layout for the card's multiprocessor count: a
+    block computes one tile of one group's ``dW[e]``, its k stopping at the
+    group's last row. The launch is counted in ``fdp_ragged_dw.launches``;
+    CPU tensors run ``fdp_ragged_dw_plain``."""
     if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0] \
             or group_sizes.ndim != 1:
         raise ValueError(f"fdp_ragged_dw expects x (T,d), g (T,f), group_sizes (E,), "
@@ -614,18 +629,23 @@ def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor, *
     T, d = x.shape
     f = g.shape[1]
     E = group_sizes.shape[0]
-    if -(-d // 8) > 65535 or E > 65535:
-        raise ValueError(f"{d} rows or {E} groups exceed the kernel grid (65535)")
+    if E * d * f == 0:
+        return torch.empty((E, d, f), dtype=torch.float32, device=x.device)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    lay = ragged_dw_launch(spec.num_limbs, T, E, d, f, _sm_count(index))
+    _, rows, _ = lay.grid(E, d, f)
+    if rows > _GRID_YZ or E > _GRID_YZ:
+        raise ValueError(f"{d} rows or {E} groups exceed the kernel grid ({_GRID_YZ} row "
+                         f"tiles of {lay.tile[0]}, {_GRID_YZ} groups)")
     out = torch.empty((E, d, f), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
     gs = group_sizes.to(torch.int32).contiguous()
     lib = load()["fdp_ragged_dw"]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.fdp_ragged_dw_launch(
             x.data_ptr(), g.data_ptr(), gs.data_ptr(), out.data_ptr(), T, E, d, f,
-            *x.stride(), *g.stride(), *numerics, stream)
+            *x.stride(), *g.stride(), *numerics, lay.lc, lay.tm, lay.tx, lay.ty, lay.ks,
+            lay.bks, stream)
     if err != 0:
         raise RuntimeError(f"fdp_ragged_dw kernel launch failed: cudaError {err}")
     _count(fdp_ragged_dw)

@@ -1,7 +1,9 @@
-"""Device times of the sorted-segment forward kernel at the main path's
-calls, for holding two checkouts of the port side by side on one card.
+"""Device times of the sorted-segment kernels (the forward and the weight
+gradient) at the main path's calls, for holding two checkouts of the port
+side by side on one card.
 
     python -m repro_torch.kernels.ragged_times [--reps N] [--routings]
+    python -m repro_torch.kernels.ragged_times --dw [--reps N]
 
 For each call it prints one JSON line: the shapes of ``x (T, d)`` and ``w
 (E, d, f)``, the group sizes, and at the paper's 91-bit <30,30,-30> and at
@@ -28,13 +30,22 @@ No rows routed (every group empty) launches the same grid with no
 products: every block returns or writes zeros, which is the most the
 grid's padding to ceil(T / BM) + E row tiles can cost.
 
+``--dw`` times the weight-gradient kernel instead, the same way (one JSON
+line a call, both specs): ``fdp_ragged_dw(x, g, group_sizes, ...)`` at the
+three weight gradients of a dbrx-132b training step (moe_in's and
+moe_gate's, x (1024, d) and g (1024, f); moe_out's, x (1024, f) and g
+(1024, d); 1024 rows in 16 groups, as ``chip_smoke.py`` routes them), then
+at moe_in's shape with no rows routed (every output reads out a zero
+register: the read-out and store floor) and with one row a group (one
+product an output beside a full read-out).
+
 Without ``--routings`` it calls only ``fdp_ragged_gemm(x, w, group_sizes,
-spec=..., fmt=...)``,
-the configs and ``dense_times``' timers, which every version of the port
-since the dense kernel's redesign has: copied with ``dense_times.py`` into
-another checkout's ``src/repro_torch/kernels/`` and run there with that
-checkout's ``src`` on ``PYTHONPATH``, it times that checkout's kernel on the
-same inputs.
+spec=..., fmt=...)`` (``--dw``: ``fdp_ragged_dw(x, g, group_sizes, spec=...,
+fmt=...)``), the configs and ``dense_times``' timers, which every version of
+the port since the dense kernel's redesign has: copied with
+``dense_times.py`` into another checkout's ``src/repro_torch/kernels/`` and
+run there with that checkout's ``src`` on ``PYTHONPATH``, it times that
+checkout's kernel on the same inputs.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from repro_torch.kernels import fdp_gemm as K
 from repro_torch.kernels.dense_times import cuda_ms, device_ms
 
 SYMBOL = "fdp_ragged_gemm_kernel"
+DW_SYMBOL = "fdp_ragged_dw_kernel"
 DECODE_TOKENS, TRAIN_TOKENS = 4, 4 * 64
 
 
@@ -77,6 +89,18 @@ def calls() -> list:
             ("dbrx moe_out decode", DECODE_TOKENS * k, f, d, decode, False),
             ("dbrx moe_in train forward", TRAIN_TOKENS * k, d, f, train, False),
             ("dbrx moe_in train dX", TRAIN_TOKENS * k, d, f, train, True)]
+
+
+def dw_calls() -> list:
+    """``(name, T, d, f, group sizes)`` of each weight gradient ``--dw``
+    times: x (T, d) and g (T, f)."""
+    cfg = get_config("dbrx-132b")
+    d, f, E, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    T, train = TRAIN_TOKENS * k, routed_sizes(TRAIN_TOKENS, E, k, seed=6)
+    return [("dbrx moe_in dW", T, d, f, train), ("dbrx moe_gate dW", T, d, f, train),
+            ("dbrx moe_out dW", T, f, d, train),
+            ("dbrx moe_in dW, no rows routed", T, d, f, [0] * E),
+            ("dbrx moe_in dW, one row a group", T, d, f, [1] * E)]
 
 
 def routings(n_experts: int) -> dict:
@@ -114,6 +138,8 @@ def main(argv: list) -> None:
                     help="calls a time at decode (a tenth, at least 2, at training)")
     ap.add_argument("--routings", action="store_true",
                     help="also time moe_in's decode shape under other routings")
+    ap.add_argument("--dw", action="store_true",
+                    help="time the weight-gradient kernel instead of the forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card: the kernel has no CPU mode")
@@ -123,25 +149,40 @@ def main(argv: list) -> None:
                           text=True).stdout.strip().splitlines()[:1]
     specs = {"91-bit": AccumulatorSpec.paper_91bit(), "<9,6,-20>": AccumulatorSpec(9, 6, -20)}
     gen = torch.Generator(device=dev).manual_seed(0)
+    card = card[0] if card else None
+
+    def timed(row: dict, launch, reps: int, symbol: str) -> None:
+        """Fill ``row`` with each spec's times of ``launch(spec)`` and print it."""
+        for label, spec in specs.items():
+            call = lambda: launch(spec)  # noqa: E731
+            row[f"ms {label}"] = cuda_ms(call, reps)
+            row[f"device_ms {label}"] = device_ms(call, reps, symbol)
+        row.update(card=card, kernel_wrapper=K.__file__)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+    if args.dw:
+        for name, T, d, f, gs in dw_calls():
+            x = torch.randn(T, d, generator=gen, device=dev)
+            g = torch.randn(T, f, generator=gen, device=dev) * f ** -0.5
+            sizes = torch.tensor(gs, dtype=torch.int32, device=dev)
+            timed({"name": name, "x": list(x.shape), "g": list(g.shape), "groups": gs},
+                  lambda spec: K.fdp_ragged_dw(x, g, sizes, spec=spec, fmt=FP32),
+                  max(2, args.reps // 10), DW_SYMBOL)
+            del x, g
+        return
     for name, T, d, f, gs, transposed in calls():
         w = torch.randn(len(gs), d, f, generator=gen, device=dev) * d ** -0.5
         if transposed:
             w = w.transpose(-1, -2)
         x = torch.randn(T, w.shape[1], generator=gen, device=dev)
         sizes = torch.tensor(gs, dtype=torch.int32, device=dev)
-        reps = args.reps if T <= 64 else max(2, args.reps // 10)
-        row = {"name": name, "x": list(x.shape), "w": list(w.shape), "groups": gs}
-        for label, spec in specs.items():
-            call = lambda: K.fdp_ragged_gemm(x, w, sizes, spec=spec, fmt=FP32)  # noqa: E731
-            row[f"ms {label}"] = cuda_ms(call, reps)
-            row[f"device_ms {label}"] = device_ms(call, reps, SYMBOL)
-        row.update(card=card[0] if card else None, kernel_wrapper=K.__file__)
-        print(json.dumps(row), flush=True)
+        timed({"name": name, "x": list(x.shape), "w": list(w.shape), "groups": gs},
+              lambda spec: K.fdp_ragged_gemm(x, w, sizes, spec=spec, fmt=FP32),
+              args.reps if T <= 64 else max(2, args.reps // 10), SYMBOL)
         del x, w
-        torch.cuda.empty_cache()
     if args.routings:
-        print(json.dumps(time_routings(dev, gen, args.reps, card[0] if card else None)),
-              flush=True)
+        print(json.dumps(time_routings(dev, gen, args.reps, card)), flush=True)
 
 
 if __name__ == "__main__":

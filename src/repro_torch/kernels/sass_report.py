@@ -3,11 +3,12 @@ instructions each exact product costs in its product loop.
 
     python -m repro_torch.kernels.sass_report [SOURCE.cu ...]
 
-(default: the two tiled kernels, ``csrc/fdp_gemm.cu`` and
-``csrc/fdp_ragged_gemm.cu``) compiles each source to a cubin for ``sm_90a``
-with the kernels' flags and ``-Xptxas -v``, all sources at once, then reads
-``cuobjdump -sass``. For every kernel instantiation it prints one JSON
-line: the registers and spill bytes that ptxas reports, and for its
+(default: the three tiled kernels, ``csrc/fdp_gemm.cu``,
+``csrc/fdp_ragged_gemm.cu`` and ``csrc/fdp_ragged_dw.cu``) compiles each
+source to a cubin for ``sm_90a`` with the kernels' flags and ``-Xptxas
+-v``, all sources at once, then reads ``cuobjdump -sass``. For every
+kernel instantiation it prints one JSON line: the registers and spill
+bytes that ptxas reports, and for its
 product loop (the loop, a backward branch, whose own body forms the most
 significand products, each an ``IMAD.WIDE.U32`` with no addend; not a
 tile-load loop) the instructions in that body, the products it forms,
@@ -152,8 +153,8 @@ def report(source: Path) -> list:
 
 
 def main(argv: list) -> None:
-    sources = [Path(p) for p in argv] or [K._CSRC / "fdp_gemm.cu",
-                                          K._CSRC / "fdp_ragged_gemm.cu"]
+    sources = [Path(p) for p in argv] or [K._CSRC / name for name in (
+        "fdp_gemm.cu", "fdp_ragged_gemm.cu", "fdp_ragged_dw.cu")]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         for rows in pool.map(report, sources):
             for row in rows:

@@ -6,6 +6,9 @@ bit-equal to ``repro.kernels.ops`` (Pallas in interpret mode) and to
 The kernel itself is held against the plain version on the card in
 ``test_torch_kernel_cuda.py``."""
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -258,9 +261,9 @@ def test_dense_tile_table_is_read_from_the_kernels_file():
     (csrc/fdp_gemm_tiles.def): every capacity with its rows, columns and
     blocks, and the shared-memory limit. The shared tile body
     (csrc/fdp_tile.cuh) includes that file for its Tile<LC> table, its
-    capacity switch and its limit; the dense and the sorted-segment kernels
-    include the tile body, and neither reads the table or defines a tile
-    of its own."""
+    capacity switch and its limit; the dense kernel and both sorted-segment
+    kernels (forward and weight gradient) include the tile body, and none
+    reads the table or defines a tile of its own."""
     tiles, resident, limit = tk._dense_table()
     assert tiles == tk.DENSE_TILE and resident == tk.DENSE_RESIDENT
     assert tk.DENSE_CAPACITIES == (2, 4, 6, 8, 12, 16, 24, 32, 40)
@@ -272,10 +275,48 @@ def test_dense_tile_table_is_read_from_the_kernels_file():
         "struct Tile;", "")
     assert sorted(p.name for p in tk._CSRC.iterdir()
                   if '#include "fdp_gemm_tiles.def"' in p.read_text()) == ["fdp_tile.cuh"]
-    for kernel in ("fdp_gemm.cu", "fdp_ragged_gemm.cu"):
+    for kernel in ("fdp_gemm.cu", "fdp_ragged_gemm.cu", "fdp_ragged_dw.cu"):
         source = (tk._CSRC / kernel).read_text()
         assert '#include "fdp_tile.cuh"' in source and "fdp::fdp_tile<" in source
         assert "struct Tile" not in source and "load_tile(" not in source
+
+
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+def _c_entry(source: str) -> tuple:
+    """(name, [ctypes type of each parameter]) of the one function in a
+    source's ``extern "C"`` block: a pointer (any ``const void*`` or
+    ``void*``) is ``c_void_p``, ``int`` ``c_int``, ``long long``
+    ``c_longlong``."""
+    block = source.split('extern "C" {', 1)[1]
+    m = re.search(r"^int (\w+)\(([^)]*)\)\s*\{", block, re.M)
+    types = []
+    for param in " ".join(m.group(2).split()).split(", "):
+        kind = param.rsplit(" ", 1)[0].replace("const ", "").replace(" *", "*")
+        types.append(_C_TYPES[kind])
+    return m.group(1), types
+
+
+@pytest.mark.parametrize("stem", sorted(tk._ENTRIES))
+def test_entry_point_signature_matches_its_ctypes_argtypes(stem):
+    """Each kernel library's C entry point, parsed from its ``csrc/<stem>.cu``,
+    has the name and argument types that ``_ENTRIES`` gives ctypes: a
+    mismatch there is silent on the card (ctypes would pass a 64-bit stride
+    as a 32-bit int, or cut a pointer). Every source has its entry."""
+    assert sorted(tk._ENTRIES) == sorted(p.stem for p in tk._CSRC.glob("*.cu"))
+    name, types = _c_entry((tk._CSRC / f"{stem}.cu").read_text())
+    want_name, want_types = tk._ENTRIES[stem]
+    assert name == want_name
+    assert types == want_types
+
+
+def test_entry_point_parser_reads_every_parameter_kind():
+    """The signature reader of the test above, on a made-up entry point."""
+    src = ('// x\nextern "C" {\n\nint f_launch(const void* a, void* b, int n,\n'
+           '             long long s, void* stream) {\n  return 0;\n}\n}\n')
+    assert _c_entry(src) == ("f_launch", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_longlong, ctypes.c_void_p])
 
 
 @pytest.mark.parametrize("rows", [1, 2, 3, 6, 64])

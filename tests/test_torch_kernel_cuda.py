@@ -247,37 +247,177 @@ def test_ragged_wrapper_raises_on_a_failed_launch(monkeypatch):
     assert tk.fdp_ragged_gemm.launches == before
 
 
+def _dw_case(g, T, d, f, gs, tf, *, scale=1.0, positive=False, views=True):
+    """x (T, d) and g (T, f) on the card: with views, x the transposed view
+    of a (d, T) tensor and g every other column of a (T, 2f) one (they load
+    along t and with a stride), else contiguous (as the training step calls
+    it: loads along d and f). Float inputs are not rounded to the format
+    (so RNE rounds nearly every product)."""
+    x = (torch.randn(d, T, generator=g).T if views else torch.randn(T, d, generator=g)) * scale
+    go = torch.randn(T, 2 * f, generator=g) if views else torch.randn(T, f, generator=g)
+    if positive:
+        x, go = x.abs(), go.abs()
+    if isinstance(tf, tfmt.PositFormat):
+        x, go = tf.from_float(x), tf.from_float(go)
+    if views:
+        x, go = x.T.cuda().T, go.cuda()[:, ::2]
+    else:
+        x, go = x.cuda(), go.cuda()
+    return x, go, torch.tensor(gs, dtype=torch.int32, device="cuda")
+
+
 @pytest.mark.cuda
 def test_ragged_dw_kernel_bit_equal_to_plain_on_card():
     """The sorted-segment weight-gradient kernel against its plain version:
     zero-size groups leading, inner and trailing, every group empty, rows
-    past the total, strided (transposed) operands, a group longer than
-    SAFE_CHUNK rows, and every format."""
+    past the total, strided (transposed) and contiguous operands, a group
+    longer than SAFE_CHUNK rows, every format; groups of 1, 31, 33 and 65
+    rows (no multiple of a chunk: the last chunk's k loop stops at the
+    group's end); register capacities 2, 4, 6, 12 and 32, RNE where every
+    product rounds, and a saturating 3-limb register fed products past its
+    top limb. Each case runs through the wrapper and again through the C
+    entry point at the wrapper's layout into a NaN-filled output, so every
+    output must be written."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator().manual_seed(2)
-    cases = [(50, 13, 40, [0, 9, 0, 14, 7, 0], "ieee_fp32", "paper_91bit"),
-             (24, 33, 9, [0, 0, 24], "bfloat16", "rne"),
-             (16, 20, 40, [5, 0, 11, 0], "posit16_1", "saturate"),
-             (8, 6, 8, [0, 0, 0], "ieee_fp32", "paper_91bit"),
-             (tacc.SAFE_CHUNK + 517, 3, 33, [0, tacc.SAFE_CHUNK + 500], "ieee_fp32",
-              "paper_91bit")]
-    for T, d, f, gs, fmt_name, spec_name in cases:
-        tf = tfmt.get_format(fmt_name)
-        ts = tacc.AccumulatorSpec(**SPEC_ARGS[spec_name])
-        x, go = torch.randn(d, T, generator=g), torch.randn(T, 2 * f, generator=g)
-        if T > tacc.SAFE_CHUNK:
-            x, go = x.abs(), go.abs()                    # limbs grow: carries must normalize
-        if isinstance(tf, tfmt.PositFormat):
-            x, go = tf.from_float(x), tf.from_float(go)
-        x, go = x.cuda().T, go.cuda()[:, ::2]            # strided views
-        sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    spec = tacc.AccumulatorSpec
+    fp32, bf16 = tfmt.get_format("ieee_fp32"), tfmt.get_format("bfloat16")
+    posit = tfmt.get_format("posit16_1")
+    p91, rne = spec(30, 30, -30), spec(30, 30, -30, round_mode="rne")
+    sat = spec(2, 5, -18, overflow_mode="saturate")
+    cases = [((50, 13, 40, [0, 9, 0, 14, 7, 0]), fp32, p91, {}),
+             ((24, 33, 9, [0, 0, 24]), bf16, rne, {}),
+             ((16, 20, 40, [5, 0, 11, 0]), posit, sat, {}),
+             ((8, 6, 8, [0, 0, 0]), fp32, p91, {}),
+             ((tacc.SAFE_CHUNK + 517, 3, 33, [0, tacc.SAFE_CHUNK + 500]), fp32, p91,
+              dict(positive=True)),                            # one register, all positive
+             ((140, 70, 90, [1, 31, 0, 33, 65]), fp32, p91, {}),            # short chunks
+             ((140, 70, 90, [65, 33, 1, 0, 31]), fp32, p91, dict(views=False)),
+             ((140, 96, 80, [33, 0, 1, 65, 31]), posit, sat, dict(views=False)),
+             ((60, 100, 37, [0, 17, 33]), fp32, spec(2, 5, -8), dict(scale=8.0)),  # 1 limb
+             ((80, 150, 45, [31, 0, 44]), fp32, spec(9, 6, -20), dict(views=False)),  # 3 limbs
+             ((70, 200, 40, [33, 0, 31]), fp32, spec(9, 6, -20, overflow_mode="saturate"),
+              dict(scale=3e6)),                                # every product past the top
+             ((40, 90, 19, [9, 0, 31]), bf16, spec(60, 60, -60), dict(scale=1e10)),  # 12 limbs
+             ((40, 170, 29, [0, 1, 33]), fp32, spec(100, 200, -100, round_mode="rne"),
+              dict(scale=1e20)),                               # 26 limbs
+             ((72, 120, 40, [0, 31, 33]), fp32, rne, dict(scale=1e-6)),  # every product rounds
+             ]
+    capacities, sms = set(), tk._sm_count(torch.cuda.current_device())
+    for (T, d, f, gs), tf, ts, kw in cases:
+        x, go, sizes = _dw_case(g, T, d, f, gs, tf, **kw)
         want = tk.fdp_ragged_dw_plain(x, go, sizes, spec=ts, fmt=tf)
         got = tk.fdp_ragged_dw(x, go, sizes, spec=ts, fmt=tf)
+        lay = tk.ragged_dw_launch(ts.num_limbs, T, len(gs), d, f, sms)
+        out = torch.full((len(gs), d, f), float("nan"), device="cuda")
+        err = _dw_entry(x, go, sizes, out, ts, tf, lay)
         torch.cuda.synchronize()
-        assert torch.equal(want, got), (T, d, f, gs, fmt_name, spec_name)
+        assert torch.equal(want, got), (T, d, f, gs, tf.name, ts.describe(), kw)
+        assert err == 0 and torch.equal(want, out), (T, d, f, gs, tf.name, ts.describe(), kw)
         for e, n in enumerate(gs):
             assert n or not got[e].any()
+        if ts.overflow_mode == "saturate" and kw.get("scale", 1.0) > 1e3:
+            # the register's extremes, rounded to f32 as the read-out does
+            hi = float(torch.tensor((2 ** (ts.width - 1) - 1) * 2.0 ** ts.lsb).float())
+            lo = -(2 ** (ts.width - 1)) * 2.0 ** ts.lsb
+            assert bool(((got == hi) | (got == lo)).any()), "the saturate case never saturated"
+        capacities.add(lay.lc)
+    assert {2, 4, 6, 12, 32} <= capacities
+
+
+def _dw_entry(x, go, sizes, out, ts, tf, lay):
+    """One launch of the weight-gradient kernel's C entry point at layout
+    ``lay``; its cudaError."""
+    lib = tk.load()["fdp_ragged_dw"]
+    T, d = x.shape
+    return lib.fdp_ragged_dw_launch(
+        x.data_ptr(), go.data_ptr(), sizes.data_ptr(), out.data_ptr(), T, sizes.shape[0], d,
+        go.shape[1], *x.stride(), *go.stride(), *tk._numerics_args(ts, tf), lay.lc, lay.tm,
+        lay.tx, lay.ty, lay.ks, lay.bks, torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+def test_ragged_dw_kernel_every_layout_on_card():
+    """Every layout ``dense_layouts`` offers for a small training-like
+    weight gradient (512 rows in 8 groups of 0 to 95, d 128, f 96),
+    launched through the C entry point on contiguous and on strided views,
+    writes every output with the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(7)
+    fp32 = tfmt.get_format("ieee_fp32")
+    ts = tacc.AccumulatorSpec(30, 30, -30)
+    T, d, f, gs = 512, 128, 96, [65, 95, 0, 33, 1, 64, 91, 63]
+    lays = list(tk.dense_layouts(ts.num_limbs, d, f, -(-T // len(gs))))
+    assert tk.ragged_dw_launch(ts.num_limbs, T, len(gs), d, f, 132) in lays
+    for views in (False, True):
+        x, go, sizes = _dw_case(g, T, d, f, gs, fp32, views=views)
+        want = tk.fdp_ragged_dw_plain(x, go, sizes, spec=ts, fmt=fp32)
+        for lay in lays:
+            out = torch.full((len(gs), d, f), float("nan"), device="cuda")
+            err = _dw_entry(x, go, sizes, out, ts, fp32, lay)
+            torch.cuda.synchronize()
+            assert err == 0 and torch.equal(out, want), (views, lay)
+
+
+@pytest.mark.cuda
+def test_ragged_dw_layout_ignores_the_group_sizes_on_card(monkeypatch):
+    """Two routings of one shape (every row in one group; short groups,
+    some empty, the total short of T) launch with the same layout, and both
+    give the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = torch.Generator().manual_seed(8)
+    fp32 = tfmt.get_format("ieee_fp32")
+    ts = tacc.AccumulatorSpec(30, 30, -30)
+    lib = tk.load()["fdp_ragged_dw"]
+    calls = []
+
+    class Recording:
+        def fdp_ragged_dw_launch(self, *args):
+            calls.append(args[-7:-1])
+            return lib.fdp_ragged_dw_launch(*args)
+
+    monkeypatch.setattr(tk, "load", lambda: {"fdp_ragged_dw": Recording()})
+    for gs in ([0, 0, 200, 0, 0, 0, 0, 0], [31, 1, 0, 33, 65, 0, 1, 2]):
+        x, go, sizes = _dw_case(g, 200, 64, 48, gs, fp32, views=False)
+        got = tk.fdp_ragged_dw(x, go, sizes, spec=ts, fmt=fp32)
+        assert torch.equal(got, tk.fdp_ragged_dw_plain(x, go, sizes, spec=ts, fmt=fp32)), gs
+    assert len(calls) == 2 and calls[0] == calls[1]
+
+
+@pytest.mark.cuda
+def test_ragged_dw_wrapper_raises_on_a_failed_launch(monkeypatch):
+    """The C entry point refuses a thread layout that is not 256 threads, a
+    capacity below the spec's limbs or not in its table, a thread tile of
+    rows its capacity lacks, and no groups; the wrapper raises on a non-zero
+    code instead of falling back to the plain version, and counts no
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = tacc.AccumulatorSpec(30, 30, -30)
+    x = torch.randn(4, 8, device="cuda")
+    go = torch.randn(4, 4, device="cuda")
+    sizes = torch.tensor([1, 3], dtype=torch.int32, device="cuda")
+    out = torch.empty(2, 8, 4, device="cuda")
+    for lc, tm, tx, ty, ks, bks in ((6, 4, 16, 1, 8, 1), (4, 4, 2, 1, 128, 1),
+                                    (7, 4, 2, 1, 128, 1), (6, 8, 2, 1, 128, 1),
+                                    (6, 3, 2, 1, 128, 1), (24, 2, 2, 1, 128, 1)):
+        lay = tk.DenseLaunch(lc, tm, 2, tx, ty, ks, bks)
+        assert _dw_entry(x, go, sizes, out, spec, tfmt.FP32, lay) != 0, lay
+    lay = tk.ragged_dw_launch(6, 4, 2, 8, 4, 132)
+    assert _dw_entry(x, go, sizes[:0], out, spec, tfmt.FP32, lay) != 0      # E = 0
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1                       # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tk, "load", lambda: {"fdp_ragged_dw": Refusing()})
+    before = tk.fdp_ragged_dw.launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        tk.fdp_ragged_dw(x, go, sizes, spec=spec, fmt=tfmt.FP32)
+    assert tk.fdp_ragged_dw.launches == before
 
 
 @pytest.mark.cuda

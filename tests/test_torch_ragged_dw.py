@@ -28,6 +28,7 @@ from repro.core import accumulator as jacc  # noqa: E402
 from repro.core import dispatch as JD  # noqa: E402
 from repro.core import formats as jfmt  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import accumulator as tacc  # noqa: E402
 from repro_torch.core import dispatch as TD  # noqa: E402
 from repro_torch.core import fdp as tfdp  # noqa: E402
@@ -156,3 +157,73 @@ def test_ragged_dw_wrapper_checks_its_inputs():
     out = tops.fdp_ragged_dw(x, g, torch.tensor([1, 0, 3]), num_groups=3, spec=ts,
                              plan=TD.GemmPlan(8, 8, 8))
     assert out.tolist() == [[[1.0] * 2] * 3, [[0.0] * 2] * 3, [[3.0] * 2] * 3]
+
+
+H100_SMS = 132              # the multiprocessors of an H100 SXM
+
+
+def test_ragged_dw_launch_reads_only_shapes():
+    """The launch is a function of the spec's limbs, the shapes and the
+    card: ``ragged_dw_launch`` takes no group sizes, so the host never
+    waits for the router, and it is the dense launch for E products of d
+    rows and f columns, as deep as the rows a group holds on average."""
+    import inspect
+
+    assert list(inspect.signature(tk.ragged_dw_launch).parameters) == [
+        "num_limbs", "T", "E", "d", "f", "sms"]
+    for num_limbs, T, E, d, f in ((6, 1024, 16, 6144, 10752), (3, 1000, 16, 96, 80),
+                                  (26, 40, 3, 13, 11), (1, 7, 2, 5, 9)):
+        assert tk.ragged_dw_launch(num_limbs, T, E, d, f, H100_SMS) == tk.dense_launch(
+            num_limbs, E, d, f, -(-T // E), H100_SMS)
+    assert tk.ragged_dw_launch(6, 0, 4, 8, 8, H100_SMS) == tk.dense_launch(6, 4, 8, 8, 1,
+                                                                           H100_SMS)
+
+
+@pytest.mark.parametrize("num_limbs", [3, 6])
+def test_ragged_dw_launch_at_dbrx_training_shapes(num_limbs):
+    """A dbrx-132b training step (4 x 64 tokens top-4 of 16 experts: 1024
+    rows, ~64 a group) at 91 bits and at <9,6,-20>: moe_in's and
+    moe_gate's dW (d 6144 x f 10752) and moe_out's (10752 x 6144) get 4 x 2
+    outputs a thread, 32 x 64 block tiles and no K split, at the
+    spec's own capacity (6 limbs; 4 for <9,6,-20>)."""
+    cfg = get_config("dbrx-132b")
+    T = 4 * 64 * cfg.top_k
+    for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+        lay = tk.ragged_dw_launch(num_limbs, T, cfg.n_experts, d, f, H100_SMS)
+        assert (lay.tm, lay.tn, lay.ks) == (4, 2, 1) and lay.tile[:2] == (32, 64)
+        assert lay.lc == (6 if num_limbs == 6 else 4)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "grok-1-314b"])
+def test_ragged_dw_grid_fits_cuda_limits(arch):
+    """The grid (column tiles, row tiles, groups) of every expert weight's
+    dW at a model's widths lies inside CUDA's limits (2^31 - 1, 65535,
+    65535) and covers every output, at every register width and at a
+    decode-sized and a training-sized row count."""
+    cfg = get_config(arch)
+    for num_limbs in (1, 3, 6, 12, 26, 40):
+        for T in (cfg.top_k * 4, cfg.top_k * 4096):
+            for d, f in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)):
+                lay = tk.ragged_dw_launch(num_limbs, T, cfg.n_experts, d, f, H100_SMS)
+                gx, gy, gz = lay.grid(cfg.n_experts, d, f)
+                bm, bn, _ = lay.tile
+                assert gx * bn >= f and gy * bm >= d and gz == cfg.n_experts
+                assert gx <= 2 ** 31 - 1 and gy <= 65535 and gz <= 65535
+
+
+def test_ragged_dw_wrapper_raises_past_the_grid(monkeypatch):
+    """Past 65535 row tiles of dW[e] or 65535 groups the wrapper raises
+    before it allocates or launches (it is made to take the CPU tensors for
+    CUDA ones here: the kernel would be the next step)."""
+    monkeypatch.setattr(tk, "_check_device", lambda *ts: "cuda")
+    monkeypatch.setattr(tk, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(tk, "load", lambda: pytest.fail("the wrapper went on to launch"))
+    ts = tacc.AccumulatorSpec.paper_91bit()
+    rows = 65535 * 32 + 1                       # block tiles hold at most 8 x 4 rows
+    with pytest.raises(ValueError, match="exceed the kernel grid"):
+        tk.fdp_ragged_dw(torch.zeros(1, rows), torch.zeros(1, 1), torch.tensor([1]), spec=ts,
+                         fmt=tfmt.FP32)
+    with pytest.raises(ValueError, match="exceed the kernel grid"):
+        tk.fdp_ragged_dw(torch.zeros(1, 2), torch.zeros(1, 2),
+                         torch.zeros(65536, dtype=torch.int32), spec=ts, fmt=tfmt.FP32)
