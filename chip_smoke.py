@@ -107,7 +107,22 @@ Phases (any failure exits non-zero before the final line):
  15. the checked-in zoo plan ``examples/plans/qwen3_0p6b.json`` (all native),
      unchanged, serving qwen3-0.6b at full width once with no FDP launch,
      and its Adam moments through ``state_quant_from_policy`` (8x64);
- 16. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 16. the paper's tailoring loop at full width: calibrate qwen3-0.6b (weights
+     from seed 0) under native fp32 on 2 x 8 tokens with targets, one
+     forward and one backward of the LM loss; its forward sites must be
+     phase 3's FDP sites, each with its @bwd.dA/dB pair, one record a
+     dispatch and a sample at every site; the trace saved and loaded back
+     equal; searched on the card over the FDP-only grid (fp32 and bf16,
+     widths 24, 40, 64, budget 10 bits) in ``pallas`` mode, with the dense
+     kernel's launches held to the pallas dispatches, and in ``simulate``
+     mode: the plans equal site for site and every frontier equal; searched
+     again with the card's latency column (each pick printed beside the
+     91-bit candidate's latency at the same shape), saved with
+     ``PrecisionPlan.save`` and loaded back; the default grid's picks; TF32
+     asserted off before each search; the searched plan served at full
+     width as in phase 3 (launches == FDP dispatches, tok/s beside phase
+     3's) and, at 2 layers, its logits torch.equal its simulate twin's;
+ 17. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The bound of a kernel time is the larger of its bytes (inputs read once,
 output written once) over 3.35 TB/s (H100 SXM HBM3, NVIDIA data sheet) and
@@ -126,7 +141,9 @@ apart).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -144,6 +161,12 @@ MOE_LAYERS = 2          # dbrx-132b depth cut: 31.0 GB of f32 parameters
 # Training dbrx-132b: depth cut to 1 layer (17.97 GB of f32 parameters, as
 # much again of gradients, 9.1 GB of 8x64 Adam moments), 4 x 64 tokens
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 1, 4, 64, 3, 1e-4
+# Tailoring qwen3-0.6b: the reference's calibration shape (its
+# workloads.base.PROBE_BATCH and PROBE_SEQ) and the search's error budget
+PROBE_BATCH, PROBE_SEQ, TAILOR_BUDGET, TAILOR_MARGIN = 2, 8, 10.0, 2.0
+# output columns of each of the search's dense-kernel calls held against the
+# plain version (an output column depends only on the same column of b)
+CHECK_COLS = 64
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -1465,6 +1488,341 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
 
+    # -- 16. the tailoring loop at full width: calibrate, search, serve ------
+    from repro_torch.numerics import (calibrate, config_fingerprint, load_plan, load_trace,
+                                      search)
+
+    search_mod = importlib.import_module("repro_torch.numerics.search")
+    t16 = time.perf_counter()
+    params = init(cfg, seed=0, device=dev)
+    cgen = torch.Generator().manual_seed(3)
+    cal_batch = {k: torch.randint(0, cfg.vocab_size, (PROBE_BATCH, PROBE_SEQ),
+                                  generator=cgen).to(dev) for k in ("tokens", "targets")}
+    # (a) calibrate: one forward and one backward of the LM loss, native fp32;
+    # an added hook counts the dispatches the hooks see (a checkpointed
+    # recompute reaches none)
+    dispatched = collections.Counter()
+    remove = D.add_trace_hook(lambda site, *args: dispatched.update([site]))
+    t = time.perf_counter()
+    try:
+        with calibrate() as trace:
+            with D.use_policy(D.MXU_FP32):
+                with torch.no_grad():
+                    forward(params, cfg, {"tokens": cal_batch["tokens"]}, remat="none")
+                loss, _ = make_loss_fn(cfg, remat="none")(params, cal_batch)
+            loss.backward()               # autograd's device thread runs the hooks
+        torch.cuda.synchronize()
+    finally:
+        remove()
+    cal_s = time.perf_counter() - t
+    params.zero_grad(set_to_none=True)
+    del loss
+    fwd_sites = set(trace.sites("fwd"))
+    if fwd_sites != set(qwen["calls"]):
+        fail(f"calibrated forward sites {sorted(fwd_sites)} != the FDP sites phase 3 "
+             f"dispatched {sorted(qwen['calls'])}")
+    pairs = {f"{s}@bwd.{o}" for s in fwd_sites for o in ("dA", "dB")}
+    if set(trace.sites("bwd")) != pairs or set(trace.sites()) != set(dispatched):
+        fail(f"calibrated sites {trace.sites()} != the forward sites, their @bwd.dA/dB "
+             f"pairs and the dispatches {sorted(dispatched)}")
+    for site in trace.sites():
+        prof = trace.profile(site)
+        if prof.calls != dispatched[site] or prof.sample is None:
+            fail(f"{site}: {prof.calls} calls recorded for {dispatched[site]} dispatches, "
+                 f"sample {'present' if prof.sample else 'missing'}")
+    log(f"calibrated qwen3-0.6b at full width ({cfg.n_layers} layers, batch "
+        f"{PROBE_BATCH} x {PROBE_SEQ} tokens with targets, native fp32, one forward and "
+        f"one backward of the LM loss) in {cal_s:.3f} s: {len(fwd_sites)} forward sites "
+        f"== phase 3's FDP sites, {len(pairs)} @bwd sites, {sum(dispatched.values())} "
+        f"records == dispatches seen by an added hook, a sample at every site")
+    for site in trace.sites():
+        log("  " + trace.profile(site).describe())
+
+    # (b) save and load back: every field and every sample byte
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "qwen3_0p6b.trace.json")
+        trace.save(trace_path, fingerprint=config_fingerprint(
+            {"arch": "qwen3-0.6b", "config": dataclasses.asdict(cfg), "batch": PROBE_BATCH,
+             "seq": PROBE_SEQ, "phases": ["bwd", "fwd"]}),
+            meta={"arch": "qwen3-0.6b", "config_name": cfg.name, "batch": PROBE_BATCH,
+                  "seq": PROBE_SEQ, "phases": ["bwd", "fwd"], "reduced": False})
+        trace_mb = os.path.getsize(trace_path) / 1e6
+        loaded = load_trace(trace_path, expect_fingerprint=trace.fingerprint)
+    if loaded.sites() != trace.sites() or loaded.meta != trace.meta or any(
+            loaded.profile(s).to_full_dict() != trace.profile(s).to_full_dict()
+            for s in trace.sites()):
+        fail("the saved trace does not load back to the calibrated one")
+    log(f"trace saved ({trace_mb:.1f} MB of JSON) and loaded back: every field and every "
+        f"sample byte equal")
+
+    # (c) and (d): search the loaded trace on the card. Every search refuses
+    # to run while TF32 is on (native candidates would score ~11 bits).
+    FDP_GRID = dict(formats=(FP32, BF16), widths=(24, 40, 64), include_native=False,
+                    phases=("fwd", "bwd"), margin_bits=TAILOR_MARGIN)
+    vs_plain = {"calls": 0, "outputs": 0, "max_abs_diff": 0.0}
+    validating = [False]
+
+    def card_search(label, **kw):
+        n_pallas = [0]
+        last = [None]
+
+        def count(site_key, cfg_, a_, b_, out_):
+            # every pallas dispatch of the search's own calls: its first
+            # CHECK_COLS output columns (all of a sample's 16) torch.equal to
+            # the plain version on the same operands. A timed repeat on the
+            # operands just checked is not checked again (the check would land
+            # in its time), nor are the validation forwards: they run the
+            # served model's calls, which (e) holds to the plain version.
+            if cfg_.mode != "pallas":
+                return
+            n_pallas[0] += 1
+            if validating[0]:
+                return
+            key = (site_key, cfg_, a_.data_ptr(), b_.data_ptr(), a_.shape, b_.shape)
+            if key == last[0]:
+                return
+            last[0] = key
+            cols = min(b_.shape[-1], CHECK_COLS)
+            want = D.gemm(a_, b_[..., :cols], site=site_key, policy=D.NumericsPolicy(
+                D.GemmConfig(cfg_.fmt, cfg_.acc, "simulate")))
+            got = out_[..., :cols]
+            if not torch.equal(got, want):
+                fail(f"search {label}: {site_key} {cfg_.tag()} {tuple(a_.shape)} @ "
+                     f"{tuple(b_.shape)}: the dense kernel != its plain version, max |diff| "
+                     f"{(got - want).abs().max().item()}")
+            vs_plain["calls"] += 1
+            vs_plain["outputs"] += got.numel()
+
+        K.fdp_gemm.launches = 0
+        remove = D.add_trace_hook(count)
+        t = time.perf_counter()
+        try:
+            res = search(loaded, TAILOR_BUDGET, name=f"qwen3-0.6b {label}", device=dev, **kw)
+            torch.cuda.synchronize()
+        finally:
+            remove()
+        dt = time.perf_counter() - t
+        if K.fdp_gemm.launches != n_pallas[0]:
+            fail(f"search {label}: dense kernel launches {K.fdp_gemm.launches} != pallas "
+                 f"dispatches {n_pallas[0]}")
+        log(f"search {label}: {len(res.decisions)} sites in {dt:.3f} s (with the checks), "
+            f"dense kernel launches {K.fdp_gemm.launches} == pallas dispatches {n_pallas[0]}")
+        return res, K.fdp_gemm.launches, dt
+
+    res_k, launches_k, search_k_s = card_search("pallas", fdp_mode="pallas", **FDP_GRID)
+    if launches_k <= 0:
+        fail("the pallas search launched no dense kernel")
+    res_s, _, search_s_s = card_search("simulate", fdp_mode="simulate", **FDP_GRID)
+
+    def rows(res):
+        return {s.site: (s.cfg.tag().replace("/simulate", "/pallas"), s.error_bits, s.energy_j)
+                for s in res.plan.sites}
+
+    if rows(res_k) != rows(res_s):
+        fail(f"pallas and simulate plans differ: "
+             f"{sorted(set(rows(res_k).items()) ^ set(rows(res_s).items()))}")
+    for site, d in res_k.decisions.items():
+        front = lambda dd: [(e.candidate.tag.rsplit("/", 1)[0], e.error_bits)
+                            for e in dd.frontier]
+        if front(d) != front(res_s.decisions[site]):
+            fail(f"{site}: pallas frontier {front(d)} != simulate frontier "
+                 f"{front(res_s.decisions[site])}")
+    picked = sorted({s.cfg.acc.num_limbs for s in res_k.plan.sites})
+    log(f"pallas and simulate searches agree site for site (tag, error bits, energy) and "
+        f"on every frontier (tag, error bits); picked registers of {picked} limbs; "
+        f"{vs_plain['calls']} kernel calls of the pallas search, {vs_plain['outputs']} "
+        f"outputs, torch.equal to the plain version")
+
+    # Each site's pick is scored on its 16 x 16 sample; the reference's
+    # legacy loop (validate=) holds the assembled plan to the budget end to
+    # end and upgrades the weakest forward site until it holds: here, the
+    # full-width model's logits on the calibration tokens against FDP91's.
+    with torch.no_grad(), D.use_policy(FDP91_KERNEL):
+        ref_logits = forward(params, cfg, {"tokens": cal_batch["tokens"]})[..., :cfg.vocab_size]
+    validated = []
+
+    def validate(policy):
+        validating[0] = True
+        try:
+            with torch.no_grad(), D.use_policy(policy):
+                got = forward(params, cfg, {"tokens": cal_batch["tokens"]})[..., :cfg.vocab_size]
+        finally:
+            validating[0] = False
+        validated.append(float(np.median(metrics.correct_bits(got, ref_logits, cap=24))))
+        return validated[-1]
+
+    res_l, launches_l, search_l_s = card_search("pallas with latency, validated",
+                                                fdp_mode="pallas", measure_latency=True,
+                                                validate=validate, **FDP_GRID)
+    del ref_logits
+    if not res_l.validated_bits >= TAILOR_BUDGET:
+        fail(f"the validated search ends at {res_l.validated_bits:.3f} bits end to end, "
+             f"below the budget of {TAILOR_BUDGET} (per call: {validated})")
+    first = {site: next((i for i, p in enumerate(d.frontier)
+                         if p.error_bits >= TAILOR_BUDGET + TAILOR_MARGIN), len(d.frontier) - 1)
+             for site, d in res_l.decisions.items()}
+    upgraded = {site: (d.frontier[first[site]].candidate.tag, d.pick.candidate.tag)
+                for site, d in sorted(res_l.decisions.items()) if d.chosen != first[site]}
+    log(f"validated end to end (median correct bits of the full-width logits on the "
+        f"calibration tokens against FDP91, per call: "
+        f"{', '.join(f'{b:.3f}' for b in validated)}); {len(upgraded)} upgrades: "
+        + (", ".join(f"{s} {a} -> {b}" for s, (a, b) in upgraded.items()) or "none"))
+    p91 = D.GemmConfig(FP32, P91, "pallas")
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_path = os.path.join(tmp, "qwen3_0p6b.searched.json")
+        res_l.plan.save(plan_path)
+        searched = load_plan(plan_path)
+        searched_policy = D.policy_from_plan(plan_path)    # as --precision-plan does
+    if [(s.site, s.cfg.tag()) for s in searched.sites] != \
+            [(s.site, s.cfg.tag()) for s in res_l.plan.sites]:
+        fail("the searched plan does not load back to its own sites")
+    lat91 = {}
+    log(f"searched plan (budget {TAILOR_BUDGET} bits, latency measured on the card), "
+        f"saved and loaded back; modeled energy {res_l.plan.meta['modeled_energy_j']:.4e} J "
+        f"= {100 * res_l.plan.meta['energy_vs_baseline']:.1f}% of uniform 91 bits:")
+    for site, d in sorted(res_l.decisions.items()):
+        pk = d.pick
+        lat91[site] = search_mod._measure_latency_us(p91, d.profile, dev)
+        shape = max(d.profile.shapes.items(), key=lambda kv: kv[1])[0]
+        log(f"  {site:16s} {pk.candidate.tag:32s} {pk.error_bits:5.1f} bits "
+            f"{pk.energy_j:.3e} J {pk.latency_us:9.1f} us; 91 bits {lat91[site]:9.1f} us "
+            f"at (m, n, k) {shape[1:]}")
+    k_tags = {site: row[0] for site, row in rows(res_k).items()}
+    moved = {site: (k_tags[site], d.frontier[first[site]].candidate.tag)
+             for site, d in res_l.decisions.items()
+             if k_tags[site] != d.frontier[first[site]].candidate.tag}
+    log(f"the latency axis moved {len(moved)} of the first picks of the search without it: "
+        + (", ".join(f"{s} {a} -> {b}" for s, (a, b) in sorted(moved.items())) or "none"))
+    res_d, launches_d, search_d_s = card_search("default grid (native included; FDP on the "
+                                                "kernel by default)")
+    by_tag: dict = {}
+    for sp in res_d.plan.sites:
+        by_tag[sp.cfg.tag()] = by_tag.get(sp.cfg.tag(), 0) + 1
+    log("default grid picks by tag: " + ", ".join(f"{t} x{n}" for t, n in sorted(by_tag.items())))
+
+    # (e) serve the searched plan at full width, as phase 3 serves
+    D.reset_sites_seen()
+    K.fdp_gemm.launches = 0
+    tailored_toks, tailored_first = serve_under(searched_policy)
+    tailored_launches = K.fdp_gemm.launches
+    tcalls = D.site_calls()
+    n_tailored = sum(n for s, n in tcalls.items() if searched_policy.lookup(s).mode == "pallas")
+    if set(tcalls) != set(qwen["calls"]) or tailored_launches <= 0 \
+            or tailored_launches != n_tailored:
+        fail(f"searched-plan serve: dense kernel launches {tailored_launches} != its FDP "
+             f"dispatches {n_tailored} (sites {sorted(tcalls)})")
+    if tailored_toks.shape != (BATCH, GEN) or int(tailored_toks.min()) < 0 \
+            or int(tailored_toks.max()) >= cfg.vocab_size:
+        fail(f"searched-plan tokens malformed: {tuple(tailored_toks.shape)}")
+    tailored_s = []
+    for _ in range(SERVE_RUNS):
+        again, dt = serve_under(searched_policy)
+        if not torch.equal(again, tailored_toks):
+            fail("searched-plan tokens differ between runs")
+        tailored_s.append(dt)
+    tailored_med = sorted(tailored_s)[len(tailored_s) // 2]
+    # one more serve, untimed: each FDP call's exact outputs (f64 sums of the
+    # exact products) against its pick's msb, and against the register's top
+    # (msb + ovf), past which it wraps
+    envelope = searched.meta["envelope"]["sites"]
+    past_msb, wrapped = collections.Counter(), collections.Counter()
+    n_checked = collections.Counter()
+
+    def against_msb(site_key, cfg_, a_, b_, out_):
+        if cfg_.mode != "pallas":
+            return
+        msb = envelope[site_key]["msb"]
+        if msb != cfg_.acc.msb:
+            fail(f"{site_key}: envelope msb {msb} != the deployed {cfg_.acc.describe()}")
+        exact = torch.matmul(cfg_.fmt.quantize(a_).double(),
+                             cfg_.fmt.quantize(b_).double()).abs()
+        past_msb[site_key] += (exact >= 2.0 ** (msb + 1)).sum()
+        wrapped[site_key] += (exact >= 2.0 ** (msb + cfg_.acc.ovf)).sum()
+        n_checked[site_key] += exact.numel()
+
+    remove = D.add_trace_hook(against_msb)
+    try:
+        again, _ = serve_under(searched_policy)
+    finally:
+        remove()
+    if not torch.equal(again, tailored_toks):
+        fail("searched-plan tokens differ under the msb hook")
+    with torch.no_grad():
+        with D.use_policy(searched_policy):
+            lp = forward(params, cfg, {"tokens": prompts})[..., :cfg.vocab_size]
+        with D.use_policy(FDP91_KERNEL):
+            lr = forward(params, cfg, {"tokens": prompts})[..., :cfg.vocab_size]
+    serve_bits = float(np.median(metrics.correct_bits(lp, lr, cap=24)))
+    del lp, lr
+    if not serve_bits >= TAILOR_BUDGET:
+        fail(f"the searched plan's full-width logits on the serve's prompts keep a median "
+             f"{serve_bits:.3f} correct bits against FDP91's, below the budget of "
+             f"{TAILOR_BUDGET}")
+    past_msb = {k: int(v) for k, v in past_msb.items() if int(v)}
+    wrapped = {k: int(v) for k, v in wrapped.items() if int(v)}
+    log(f"searched-plan full-width logits on the serve's prompts: median correct bits "
+        f"against FDP91 {serve_bits:.3f} (budget {TAILOR_BUDGET})")
+    log(f"searched-plan serve against each pick's msb: {sum(n_checked.values())} FDP outputs "
+        f"at {len(n_checked)} sites; past msb {sum(past_msb.values())} "
+        f"({past_msb or 'none'}), past msb + ovf (wrapped) {sum(wrapped.values())} "
+        f"({wrapped or 'none'})")
+    log(f"serve qwen3-0.6b at full width from the searched plan: dense kernel launches "
+        f"{tailored_launches} == FDP dispatches {n_tailored}; seconds per serve (after a "
+        f"first of {tailored_first:.3f} s): {', '.join(f'{x:.3f}' for x in tailored_s)}; "
+        f"median {tailored_med:.3f} s = {BATCH * GEN / tailored_med:.2f} tok/s, beside "
+        f"{qwen['tok_s']:.2f} under {FDP91_KERNEL.name} and {qwen['fp32_tok_s']:.2f} under "
+        f"{D.MXU_FP32.name} (phase 3, this run)")
+    del params
+    torch.cuda.empty_cache()
+    params = init(cfg2, seed=0, device=dev)
+    with torch.no_grad():
+        lt = {}
+        for name, pol in (("plan", searched_policy), ("twin", simulate_twin(searched_policy)),
+                          ("fdp91", FDP91_KERNEL), ("fp32", D.MXU_FP32)):
+            with D.use_policy(pol):
+                lt[name] = forward(params, cfg2, batch)
+    if not bool(torch.isfinite(lt["plan"][..., :cfg2.vocab_size]).all()):
+        fail("searched-plan logits are not finite")
+    if not torch.equal(lt["plan"], lt["twin"]):
+        fail(f"searched-plan logits != its simulate twin's: max |diff| "
+             f"{(lt['plan'] - lt['twin']).abs().max().item()}")
+    tailored_bits = float(np.median(metrics.correct_bits(
+        lt["plan"][..., :cfg2.vocab_size], lt["fdp91"][..., :cfg2.vocab_size], cap=24)))
+    if not tailored_bits >= TAILOR_BUDGET:
+        fail(f"searched-plan logits keep a median {tailored_bits:.3f} correct bits against "
+             f"FDP91's, below the budget of {TAILOR_BUDGET}")
+    tailored_top1 = metrics.top1_agreement(lt["plan"][..., :cfg2.vocab_size],
+                                           lt["fp32"][..., :cfg2.vocab_size])
+    del params, lt
+    torch.cuda.empty_cache()
+    phase16_s = time.perf_counter() - t16
+    log(f"2-layer full-width qwen3-0.6b {tuple(batch['tokens'].shape)}: searched-plan logits "
+        f"torch.equal its simulate twin; median correct bits against FDP91 "
+        f"{tailored_bits:.3f} (budget {TAILOR_BUDGET}); top-1 agreement with native fp32 "
+        f"{tailored_top1:.4f}. Phase 16 took {phase16_s:.2f} s")
+    tailoring = {
+        "calibrate_s": cal_s, "trace_mb": trace_mb, "sites": len(trace.sites()),
+        "search_s": {"pallas": search_k_s, "simulate": search_s_s,
+                     "pallas_latency": search_l_s, "default_grid": search_d_s},
+        "search_launches": {"pallas": launches_k, "pallas_latency": launches_l,
+                            "default_grid": launches_d},
+        "validated_bits": validated, "upgraded": upgraded,
+        "search_kernel_vs_plain": vs_plain,
+        "plan": {s.site: {"tag": s.cfg.tag(), "error_bits": s.error_bits,
+                          "energy_j": s.energy_j, "latency_us": s.latency_us,
+                          "latency_us_91bit": lat91[s.site]} for s in res_l.plan.sites},
+        "latency_moved": moved, "default_grid_picks": by_tag,
+        "energy_vs_baseline": res_l.plan.meta["energy_vs_baseline"],
+        "serve": {"launches": tailored_launches, "first_serve_s": tailored_first,
+                  "serve_s": tailored_s, "tok_s": BATCH * GEN / tailored_med,
+                  "fdp91_kernel_tok_s": qwen["tok_s"], "fp32_tok_s": qwen["fp32_tok_s"],
+                  "top1_vs_fp32_2layer": tailored_top1,
+                  "bits_vs_fdp91_2layer": tailored_bits,
+                  "bits_vs_fdp91_full_width": serve_bits,
+                  "fdp_outputs": sum(n_checked.values()), "past_msb": past_msb,
+                  "wrapped": wrapped},
+        "phase_s": phase16_s}
+
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -1473,10 +1831,15 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fdp_gemm.cu",
         "replaces": "src/repro/kernels/fdp_gemm.py:65",
         "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
-                     + train["launches"]["fdp_gemm"]),
+                     + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
+                     + tailored_launches),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
-                             "dbrx-132b train step": train["launches"]["fdp_gemm"]},
+                             "dbrx-132b train step": train["launches"]["fdp_gemm"],
+                             "qwen3-0.6b search (phase 16)":
+                                 launches_k + launches_l + launches_d,
+                             "qwen3-0.6b serve from the searched plan (phase 16)":
+                                 tailored_launches},
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
@@ -1484,7 +1847,7 @@ def main() -> None:
         "mlp_in": mi, "router_2d": {**router, "launches": dbrx["calls"]["moe_router"]},
         "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
-        "serve_trace": qwen["trace"],
+        "serve_trace": qwen["trace"], "tailoring": tailoring,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

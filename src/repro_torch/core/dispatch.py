@@ -25,7 +25,8 @@ is not installed.
 
 Every dispatch, forward or backward, in every mode, reports ``(site_key,
 cfg, a, b, out)`` to the trace hooks (``set_trace_hook``, ``add_trace_hook``)
-when any is installed; with none, the check is one ``is None``. A
+when any is installed, except in the recompute of a ``checkpoint``ed region;
+with none, the check is one ``is None``. A
 ``PrecisionPlan`` JSON deploys through ``policy_from_plan``; its non-GEMM
 (optimizer-state, collective) assignments ride in ``NumericsPolicy.aux``.
 
@@ -243,10 +244,20 @@ def checkpoint(fn, *args):
     match its forward."""
     from torch.utils.checkpoint import checkpoint as _checkpoint
     pol = current_policy()
+    runs = [0]
 
     def run(*a):
-        with use_policy(pol):
-            return fn(*a)
+        # every run after the first is the backward's recompute: its
+        # dispatches reach no trace hook, as the reference's callbacks do
+        # not fire in a rematerialized forward
+        runs[0] += 1
+        prev = getattr(_state, "recomputing", False)
+        _state.recomputing = runs[0] > 1
+        try:
+            with use_policy(pol):
+                return fn(*a)
+        finally:
+            _state.recomputing = prev
 
     return _checkpoint(run, *args, use_reentrant=False)
 
@@ -288,8 +299,9 @@ def _note_site(key: str) -> None:
 # Every dispatched GEMM reports (site_key, cfg, a, b, out) to the installed
 # hooks, forward and backward sites under their own keys, in every mode. The
 # hook runs eagerly, after the GEMM, on the thread that dispatched it (for a
-# CUDA backward, autograd's device thread). ``_TRACE_HOOK`` is None-checked
-# so that the path costs nothing without a hook.
+# CUDA backward, autograd's device thread); not during a checkpointed
+# region's recompute. ``_TRACE_HOOK`` is None-checked first, so that the
+# path costs nothing without a hook.
 _TRACE_HOOK = None          # composed view over the slots below
 _PRIMARY_HOOK = None        # the calibration slot (set_trace_hook)
 _EXTRA_HOOKS: list = []     # additive observers (add_trace_hook)
@@ -335,9 +347,18 @@ def add_trace_hook(hook):
     return _remove
 
 
+def _active_hook():
+    """The trace hook a dispatch reports to: None without one, and in a
+    checkpointed region's recompute."""
+    if _TRACE_HOOK is None or getattr(_state, "recomputing", False):
+        return None
+    return _TRACE_HOOK
+
+
 def _maybe_trace(site_key, cfg, a, b, out):
-    if _TRACE_HOOK is not None:
-        _TRACE_HOOK(site_key, cfg, a, b, out)
+    hook = _active_hook()
+    if hook is not None:
+        hook(site_key, cfg, a, b, out)
     return out
 
 
@@ -566,10 +587,11 @@ def _grouped_qk_execute(site: GemmSite, cfg: GemmConfig, q: torch.Tensor,
         return out.reshape(B, Kh, G, Sq, k.shape[2])
     _note_site(site.key)
     out = torch.einsum("bkgqd,bksd->bkgqs", cfg.fmt.quantize(q), cfg.fmt.quantize(k))
-    if _TRACE_HOOK is not None:
+    hook = _active_hook()
+    if hook is not None:
         # reported in matmul shape, as the FDP modes dispatch it
-        _TRACE_HOOK(site.key, cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2),
-                    out.reshape(B, Kh, G * Sq, -1))
+        hook(site.key, cfg, q.reshape(B, Kh, G * Sq, hd), k.transpose(-1, -2),
+             out.reshape(B, Kh, G * Sq, -1))
     return out
 
 
@@ -582,9 +604,9 @@ def _grouped_av_execute(site: GemmSite, cfg: GemmConfig, p: torch.Tensor,
         return out.reshape(B, Kh, G, Sq, v.shape[-1])
     _note_site(site.key)
     out = torch.einsum("bkgqs,bksd->bkgqd", cfg.fmt.quantize(p), cfg.fmt.quantize(v))
-    if _TRACE_HOOK is not None:
-        _TRACE_HOOK(site.key, cfg, p.reshape(B, Kh, G * Sq, Sk), v,
-                    out.reshape(B, Kh, G * Sq, -1))
+    hook = _active_hook()
+    if hook is not None:
+        hook(site.key, cfg, p.reshape(B, Kh, G * Sq, Sk), v, out.reshape(B, Kh, G * Sq, -1))
     return out
 
 
@@ -600,8 +622,9 @@ def _grouped_dright(site: GemmSite, cfg: GemmConfig, lhs: torch.Tensor,
         return _dispatch(site, cfg, *flat())
     _note_site(site.key)
     out = torch.einsum("bkgqx,bkgqy->bkxy", cfg.fmt.quantize(lhs), cfg.fmt.quantize(rhs))
-    if _TRACE_HOOK is not None:
-        _TRACE_HOOK(site.key, cfg, *flat(), out)
+    hook = _active_hook()
+    if hook is not None:
+        hook(site.key, cfg, *flat(), out)
     return out
 
 
@@ -701,9 +724,10 @@ def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
     flattened expert stack, as the reference reports it."""
     _note_site(site.key)
     out = _ragged_mode_switch(cfg, x, w, group_sizes)
-    if _TRACE_HOOK is not None:
+    hook = _active_hook()
+    if hook is not None:
         E, d, f = w.shape
-        _TRACE_HOOK(site.key, cfg, x, w.reshape(E * d, f), out)
+        hook(site.key, cfg, x, w.reshape(E * d, f), out)
     return out
 
 
@@ -742,9 +766,10 @@ def _ragged_dw(site: GemmSite, cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor
     The trace hooks see one (d, T) x (T, f) call and the (E*d, f) output."""
     _note_site(site.key)
     out = _ragged_dw_mode_switch(cfg, x, g, group_sizes)
-    if _TRACE_HOOK is not None:
+    hook = _active_hook()
+    if hook is not None:
         E, d, f = out.shape
-        _TRACE_HOOK(site.key, cfg, x.transpose(0, 1), g, out.reshape(E * d, f))
+        hook(site.key, cfg, x.transpose(0, 1), g, out.reshape(E * d, f))
     return out
 
 
