@@ -122,7 +122,29 @@ Phases (any failure exits non-zero before the final line):
      asserted off before each search; the searched plan served at full
      width as in phase 3 (launches == FDP dispatches, tok/s beside phase
      3's) and, at 2 layers, its logits torch.equal its simulate twin's;
- 17. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 17. the workload zoo at full width (qwen3-0.6b, weights from seed 0, the
+     workloads' 2 x 8 probe batch): (a) grad, logits, repro, solve and
+     quant_opt under FDP91_KERNEL, MXU_FP32, the zoo plan and phase 16's
+     searched plan (quant_opt under the zoo plan alone, the one with
+     quantized moments), each run's dense-kernel launches equal to its pallas
+     dispatches (the chunked loss's recomputed head included), grad and
+     logits 24.0 under FDP91_KERNEL, repro 53.0 at every wrapping pallas
+     site of the searched plan, a finite quant_opt curve with the zoo
+     plan's 8x64 moments, the context's parameters unchanged after every
+     run; (b) ``search(validators=grad,logits,repro)`` over phase 16's
+     loaded trace and FDP-only grid in ``pallas``, its upgrades capped only
+     by the frontiers (every site at its last point), every search call's
+     kernel output checked against ``simulate`` as in phase 16, the loop's
+     stop named, the plan saved, loaded and its recorded reports
+     reproduced, its forward picks beside phase 16's; (c) at 2 layers, the
+     grad and logits reports of the searched plan equal whether their FDP91
+     references run in ``pallas`` or ``simulate``; (d) Fig. 2 on the card:
+     fp64 FMA, double-double and the 91-bit FDP with a 53-bit read-out on
+     ill-conditioned dots (cond 1e14, 12-fraction-bit grid, n 128 to 8192,
+     3 trials) against the exact value, FDP91 at 53 bits for every n; (e)
+     ``python -m repro_torch.workloads --plan paper_mlp.json --tolerance 2``
+     in process, its drift beside the JAX package's on the CPU;
+ 18. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The bound of a kernel time is the larger of its bytes (inputs read once,
 output written once) over 3.35 TB/s (H100 SXM HBM3, NVIDIA data sheet) and
@@ -142,6 +164,7 @@ apart).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -161,9 +184,9 @@ MOE_LAYERS = 2          # dbrx-132b depth cut: 31.0 GB of f32 parameters
 # Training dbrx-132b: depth cut to 1 layer (17.97 GB of f32 parameters, as
 # much again of gradients, 9.1 GB of 8x64 Adam moments), 4 x 64 tokens
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 1, 4, 64, 3, 1e-4
-# Tailoring qwen3-0.6b: the reference's calibration shape (its
-# workloads.base.PROBE_BATCH and PROBE_SEQ) and the search's error budget
-PROBE_BATCH, PROBE_SEQ, TAILOR_BUDGET, TAILOR_MARGIN = 2, 8, 10.0, 2.0
+# Tailoring qwen3-0.6b: the search's error budget (the calibration shape is
+# the workloads' PROBE_BATCH x PROBE_SEQ)
+TAILOR_BUDGET, TAILOR_MARGIN = 10.0, 2.0
 # output columns of each of the search's dense-kernel calls held against the
 # plain version (an output column depends only on the same column of b)
 CHECK_COLS = 64
@@ -243,6 +266,275 @@ def trace_serve(torch, serve_once) -> dict:
             "kernels": kernels, "top": [(name[:60], us / 1e6) for name, us in top]}
 
 
+@contextlib.contextmanager
+def pallas_dispatches(D):
+    """Count every ``pallas`` dispatch (a checkpointed recompute's included,
+    which reaches no trace hook) by wrapping ``dispatch._execute``; nests.
+    Yields the one-element count."""
+    n = [0]
+    execute = D._execute
+
+    def counting(cfg_, a_, b_, **kw):
+        if cfg_.mode == "pallas":
+            n[0] += 1
+        return execute(cfg_, a_, b_, **kw)
+
+    D._execute = counting
+    try:
+        yield n
+    finally:
+        D._execute = execute
+
+
+# CPU numbers of the JAX package's `python -m repro.workloads --plan
+# examples/plans/paper_mlp.json` at seed 0 (drift in bits from the recorded
+# scores), printed beside the port's on the card
+REFERENCE_CLI_DRIFT = {"grad": 0.11, "logits": 0.06, "repro": 0.51}
+# Fig. 2: the SSH recipe of benchmarks/bench_ssh.py
+FIG2_NS, FIG2_COND, FIG2_TRIALS = (128, 512, 2048, 8192), 1e14, 3
+
+
+def worst_leaves(report) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in report.details["worst_leaves"].items())
+
+
+def workloads_phase(torch, dev, cfg, cfg2, searched_policy, legacy_plan, zoo_policy,
+                    fdp_grid, first_search, card_search, validating) -> dict:
+    """Phase 17: the workload zoo and the validated search at full width
+    (the module docstring lists its steps). ``card_search(label, **kw)``
+    is phase 16's search with its kernel-against-plain checks, and
+    ``validating[0]`` switches those checks off (the validators' forwards
+    and backwards run the model's own calls). ``first_search`` is phase
+    16's search of the same trace and grid, whose frontiers bound the
+    upgrades the validated search can make. Returns the phase's numbers
+    and the dense kernel's launches in it."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.core import dispatch as D
+    from repro_torch.core import metrics
+    from repro_torch.core.accumulator import AccumulatorSpec
+    from repro_torch.core.fdp import dd_dot, fdp_dot64, fma_dot
+    from repro_torch.data.conditioned import gen_dot
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.numerics import load_plan
+    from repro_torch.workloads import (DEFAULT_VALIDATORS, LogitFidelity, LossGradient,
+                                       WorkloadContext, build_validators, validation_summary)
+    from repro_torch.workloads import __main__ as workloads_cli
+
+    t17 = time.perf_counter()
+    launches = {"total": 0}
+
+    @contextlib.contextmanager
+    def counted(label):
+        """Count dense-kernel launches from 0 and pallas dispatches around a
+        step; fail unless they are equal."""
+        K.fdp_gemm.launches = 0
+        with pallas_dispatches(D) as executed:
+            yield
+        torch.cuda.synchronize()
+        if K.fdp_gemm.launches != executed[0]:
+            fail(f"{label}: dense kernel launches {K.fdp_gemm.launches} != pallas "
+                 f"dispatches {executed[0]}")
+        launches[label] = K.fdp_gemm.launches
+        launches["total"] += K.fdp_gemm.launches
+
+    # (a) the zoo at full width against four policies
+    ctx = WorkloadContext.for_model(cfg, budget_bits=TAILOR_BUDGET, seed=0, device=dev)
+    before = {k: p.detach().clone() for k, p in ctx.params.named_parameters()}
+    validators = build_validators(["grad", "logits", "repro", "solve", "quant_opt"], ctx)
+    policies = {"fdp91_kernel": FDP91_KERNEL, "mxu_fp32": D.MXU_FP32,
+                "zoo plan": zoo_policy, "searched plan": searched_policy}
+    zoo_runs = {}
+    for pname, policy in policies.items():
+        for v in validators:
+            if v.name == "quant_opt" and pname != "zoo plan":
+                continue        # the one plan with quantized moments (the others read 24.0)
+            t = time.perf_counter()
+            with counted(f"{v.name} under {pname}"):
+                rep = v.run(policy)
+            dt = time.perf_counter() - t
+            zoo_runs[f"{v.name} under {pname}"] = {"score": rep.score, "passed": rep.passed,
+                                                   "s": dt, "launches": K.fdp_gemm.launches}
+            log(f"  {pname:14s} {rep.describe()}  {dt:.3f} s, {K.fdp_gemm.launches} "
+                f"launches == pallas dispatches"
+                + (f"; worst leaves {worst_leaves(rep)}" if v.name == "grad" else ""))
+            if any(not torch.equal(p, before[k]) for k, p in ctx.params.named_parameters()):
+                fail(f"{v.name} under {pname} changed the context's parameters")
+            if pname == "fdp91_kernel" and v.name in ("grad", "logits") and rep.score != 24.0:
+                fail(f"{v.name} under {FDP91_KERNEL.name} reads {rep.score}, not 24.0 "
+                     f"(the oracle against itself)")
+            if v.name == "repro" and pname == "searched plan":
+                saturating = sorted(s for s in rep.site_attribution
+                                    if searched_policy.lookup(s).mode == "pallas"
+                                    and searched_policy.lookup(s).acc.overflow_mode != "wrap")
+                off = {s: b for s, b in rep.site_attribution.items()
+                       if s not in saturating and searched_policy.lookup(s).mode == "pallas"
+                       and b != 53.0}
+                if off:
+                    fail(f"repro under the searched plan: wrapping pallas sites not "
+                         f"bit-stable under reordering: {off}")
+                log(f"  repro: {len(rep.site_attribution) - len(saturating)} wrapping pallas "
+                    f"sites at 53.0 bits; saturating picks: {saturating or 'none'}")
+            if v.name == "quant_opt" and pname == "zoo plan":
+                curve, formats = rep.details["loss_curve"], rep.details["state_formats"]
+                if {formats.get(k) for k in ("opt.m@state", "opt.v@state")} != {"q8b64"} \
+                        or not all(math.isfinite(x) for x in curve):
+                    fail(f"quant_opt under the zoo plan: formats "
+                         f"{rep.details['state_formats']}, curve {curve}")
+    log(f"(a) the zoo at full width ({cfg.n_layers} layers, weights from seed 0, "
+        f"{TAILOR_BUDGET}-bit thresholds): grad and logits 24.0 under "
+        f"{FDP91_KERNEL.name}; the context's parameters unchanged after every run")
+
+    # (b) the validated search: the workloads drive the upgrades, with no cap
+    # short of the frontiers' own (every site at its last point)
+    zoo_validators = build_validators(DEFAULT_VALIDATORS, ctx)
+    rounds = []
+    for v in zoo_validators:
+        def unchecked(policy, _run=v.run, _name=v.name):
+            validating[0] = True
+            try:
+                rep = _run(policy)
+            finally:
+                validating[0] = False
+            rounds.append((_name, rep.score))
+            return rep
+        v.run = unchecked
+    max_upgrades = sum(len(d.frontier) - 1 - d.chosen for d in first_search.decisions.values())
+    with counted("validated search"):
+        res, _, search_s = card_search("pallas, validators " + ",".join(DEFAULT_VALIDATORS),
+                                       validators=zoo_validators, fdp_mode="pallas",
+                                       max_upgrades=max_upgrades, **fdp_grid)
+    reports, upgrades = res.reports, res.plan.meta["validation_upgrades"]
+    n_rounds = len(rounds) // len(zoo_validators)
+    log(f"(b) validated search in {search_s:.3f} s, {n_rounds} "
+        f"rounds, {len(upgrades)} upgrades (at most {max_upgrades}): "
+        f"{', '.join(upgrades) or 'none'}")
+    for name in sorted(reports):
+        log("  workload " + reports[name].describe()
+            + (f"; worst leaves {worst_leaves(reports[name])}" if name == "grad" else ""))
+    log("  scores by round: " + "; ".join(
+        f"{v.name} " + " ".join(f"{b:.2f}" for n, b in rounds if n == v.name)
+        for v in zoo_validators))
+    left = [(v.name, d.site) for v in zoo_validators if not reports[v.name].passed
+            for d in res.decisions.values()
+            if d.can_upgrade() and v.eligible_site(d.site, reports[v.name])]
+    if all(r.passed for r in reports.values()):
+        stop = "every report passed"
+    elif not left:
+        stop = "nothing left to widen"
+    elif len(upgrades) >= max_upgrades:
+        stop = "max_upgrades"
+    else:
+        fail(f"the validated search stopped with failing reports and sites to widen {left}")
+    log(f"  the loop stopped: {stop}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "qwen3_0p6b.validated.json")
+        res.plan.save(path)
+        reloaded = load_plan(path)
+    with counted("reloaded plan's evidence"):
+        for v in zoo_validators:
+            again = v.run(reloaded.to_policy()).to_json()
+            if again != reloaded.meta["validation"][v.name]:
+                fail(f"{v.name} on the reloaded plan: {again} != recorded "
+                     f"{reloaded.meta['validation'][v.name]}")
+    legacy = {s.site: s.cfg.tag() for s in legacy_plan.sites}
+    picks = {s.site: s.cfg.tag() for s in res.plan.sites}
+    log(f"  saved, loaded back, the recorded evidence reproduced; forward picks "
+        f"(validators | phase 16's validate=):")
+    for site in sorted(s for s in picks if "@" not in s):
+        log(f"    {site:10s} {picks[site]:34s} {legacy[site]}")
+    bwd_moved = sorted(s for s in upgrades if "@bwd" in s)
+
+    # (c) the FDP references in pallas and in simulate give the same reports
+    ctx2 = WorkloadContext.for_model(cfg2, budget_bits=TAILOR_BUDGET, seed=0, device=dev)
+    twin = {}
+    for mode in ("pallas", "simulate"):
+        t = time.perf_counter()
+        with counted(f"2-layer references in {mode}"):
+            twin[mode] = [cls(cfg2, ctx2.params, batch, device=dev, fdp_mode=mode,
+                              threshold=TAILOR_BUDGET).run(searched_policy).to_json()
+                          for cls, batch in ((LossGradient, ctx2.grad_batch),
+                                             (LogitFidelity, ctx2.batch))]
+        log(f"(c) 2-layer grad and logits with their FDP91 references in {mode}: "
+            f"{time.perf_counter() - t:.3f} s")
+    if twin["pallas"] != twin["simulate"]:
+        fail(f"2-layer reports differ between pallas and simulate references: {twin}")
+    log(f"  equal, score for score and leaf for leaf: grad {twin['pallas'][0]['score']:.3f}, "
+        f"logits {twin['pallas'][1]['score']:.3f}")
+    del ctx2
+
+    # (d) Fig. 2 on the card: fp64 FMA, double-double, 91-bit FDP (53-bit read-out)
+    spec = AccumulatorSpec.paper_91bit()
+    fig2 = {}
+    for n in FIG2_NS:
+        row = {"fp64_fma": [], "dd": [], "fdp91": [], "s": {"fp64_fma": 0.0, "dd": 0.0,
+                                                           "fdp91": 0.0}}
+        for trial in range(FIG2_TRIALS):
+            a, b, _ = gen_dot(n, FIG2_COND, seed=17 * trial + 1)
+            a, b = (np.asarray(np.rint(x.astype(np.float64) * 4096) / 4096, np.float32)
+                    for x in (a, b))
+            exact = float(metrics.exact_dot_fraction(a, b))
+            if exact == 0.0:
+                continue
+            ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+            for key, fn in (("fp64_fma", lambda: fma_dot(ta, tb, torch.float64)),
+                            ("dd", lambda: dd_dot(ta, tb, torch.float64)),
+                            ("fdp91", lambda: fdp_dot64(ta, tb, spec))):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                v = float(fn())
+                row["s"][key] += time.perf_counter() - t
+                row[key].append(float(metrics.correct_bits(v, exact)))
+        if any(bits != 53.0 for bits in row["fdp91"]) or not row["fdp91"]:
+            fail(f"Fig. 2, n={n}: FDP91 correct bits {row['fdp91']}, not 53 in every trial")
+        fig2[n] = row
+        log(f"(d) Fig. 2 n={n}: correct bits fp64 FMA "
+            f"{', '.join(f'{x:.2f}' for x in row['fp64_fma'])}; double-double "
+            f"{', '.join(f'{x:.2f}' for x in row['dd'])}; FDP91 "
+            f"{', '.join(f'{x:.2f}' for x in row['fdp91'])}; seconds "
+            + ", ".join(f"{k} {s:.3f}" for k, s in row["s"].items()))
+
+    # (e) the plan zoo's evidence: the reference's CLI drift gate on paper-mlp
+    out = io.StringIO()
+    t = time.perf_counter()
+    with counted("paper-mlp CLI"), contextlib.redirect_stdout(out):
+        try:
+            workloads_cli.main(["--plan", os.path.join(ROOT, "examples", "plans",
+                                                       "paper_mlp.json"),
+                                "--tolerance", "2", "--device", str(dev)])
+        except SystemExit as e:
+            fail(f"python -m repro_torch.workloads --plan paper_mlp.json --tolerance 2 "
+                 f"exited {e.code}:\n{out.getvalue()}")
+    cli_s = time.perf_counter() - t
+    drift = {}
+    for line in out.getvalue().splitlines():
+        log("  " + line.strip())
+        name = line.split()[0] if line.startswith("  ") else None
+        if name in REFERENCE_CLI_DRIFT and "drift" in line:
+            drift[name] = float(line.rsplit("drift ", 1)[1].rstrip("]"))
+    log(f"(e) paper-mlp CLI in {cli_s:.3f} s, inside --tolerance 2: drift "
+        + ", ".join(f"{k} {v:.2f} (JAX package on the CPU, seed 0: {REFERENCE_CLI_DRIFT[k]})"
+                    for k, v in drift.items()))
+    del ctx, before, validators, zoo_validators
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t17
+    log(f"Phase 17 took {phase_s:.2f} s; dense kernel launches {launches['total']}")
+    return {"zoo": zoo_runs,
+            "validated_search": {"s": search_s, "upgrades": upgrades, "stop": stop,
+                                 "max_upgrades": max_upgrades,
+                                 "rounds": n_rounds,
+                                 "bwd_upgrades": bwd_moved,
+                                 "reports": validation_summary(res.plan.meta),
+                                 "picks": picks, "legacy_picks": legacy,
+                                 "energy_vs_baseline": res.plan.meta["energy_vs_baseline"]},
+            "twin_2layer": {m: [r["score"] for r in reps] for m, reps in twin.items()},
+            "fig2": fig2, "cli_drift": drift, "cli_s": cli_s,
+            "launches": launches, "phase_s": phase_s}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -267,6 +559,7 @@ def main() -> None:
     from repro_torch.train import optimizer as TO
     from repro_torch.train.loop import InjectedFailure, Trainer, make_loss_fn, make_train_step
     from repro_torch.train.optimizer import adamw, cosine_schedule
+    from repro_torch.workloads import PROBE_BATCH, PROBE_SEQ
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1563,7 +1856,6 @@ def main() -> None:
     validating = [False]
 
     def card_search(label, **kw):
-        n_pallas = [0]
         last = [None]
 
         def count(site_key, cfg_, a_, b_, out_):
@@ -1571,12 +1863,9 @@ def main() -> None:
             # CHECK_COLS output columns (all of a sample's 16) torch.equal to
             # the plain version on the same operands. A timed repeat on the
             # operands just checked is not checked again (the check would land
-            # in its time), nor are the validation forwards: they run the
-            # served model's calls, which (e) holds to the plain version.
-            if cfg_.mode != "pallas":
-                return
-            n_pallas[0] += 1
-            if validating[0]:
+            # in its time), nor are the validation runs: they run the served
+            # model's calls, which (e) holds to the plain version.
+            if cfg_.mode != "pallas" or validating[0]:
                 return
             key = (site_key, cfg_, a_.data_ptr(), b_.data_ptr(), a_.shape, b_.shape)
             if key == last[0]:
@@ -1597,8 +1886,10 @@ def main() -> None:
         remove = D.add_trace_hook(count)
         t = time.perf_counter()
         try:
-            res = search(loaded, TAILOR_BUDGET, name=f"qwen3-0.6b {label}", device=dev, **kw)
-            torch.cuda.synchronize()
+            with pallas_dispatches(D) as n_pallas:
+                res = search(loaded, TAILOR_BUDGET, name=f"qwen3-0.6b {label}", device=dev,
+                             **kw)
+                torch.cuda.synchronize()
         finally:
             remove()
         dt = time.perf_counter() - t
@@ -1823,6 +2114,10 @@ def main() -> None:
                   "wrapped": wrapped},
         "phase_s": phase16_s}
 
+    # -- 17. the workload zoo and the validated search at full width ---------
+    workloads = workloads_phase(torch, dev, cfg, cfg2, searched_policy, res_l.plan,
+                                zoo_policy, FDP_GRID, res_k, card_search, validating)
+
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -1832,14 +2127,16 @@ def main() -> None:
         "replaces": "src/repro/kernels/fdp_gemm.py:65",
         "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
                      + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
-                     + tailored_launches),
+                     + tailored_launches + workloads["launches"]["total"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
                              "qwen3-0.6b search (phase 16)":
                                  launches_k + launches_l + launches_d,
                              "qwen3-0.6b serve from the searched plan (phase 16)":
-                                 tailored_launches},
+                                 tailored_launches,
+                             "qwen3-0.6b workloads and validated search (phase 17)":
+                                 workloads["launches"]["total"]},
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
@@ -1847,7 +2144,7 @@ def main() -> None:
         "mlp_in": mi, "router_2d": {**router, "launches": dbrx["calls"]["moe_router"]},
         "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
-        "serve_trace": qwen["trace"], "tailoring": tailoring,
+        "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

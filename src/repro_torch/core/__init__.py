@@ -8,7 +8,7 @@
 from .accumulator import AccumulatorSpec, SAFE_CHUNK
 from .formats import (BF16, FP16, FP32, POSIT8_0, POSIT16_1, POSIT32_2,
                       FloatFormat, PositFormat, get_format)
-from .fdp import fdp_dot, fdp_gemm
+from .fdp import dd_dot, fdp_dot, fdp_gemm, fma_dot
 from .dispatch import (FDP91, GemmPlan, GemmSite, PlanCacheStats, plan_gemm,
                        plan_cache_stats, policy_from_plan, register_plan,
                        reset_sites_seen, sites_seen, widen_config)
@@ -17,7 +17,7 @@ from .generator import DatapathReport, GeneratedGemm, datapath_report, generate_
 __all__ = [
     "AccumulatorSpec", "SAFE_CHUNK", "FP32", "BF16", "FP16",
     "POSIT16_1", "POSIT32_2", "POSIT8_0", "FloatFormat", "PositFormat",
-    "get_format", "fdp_dot", "fdp_gemm",
+    "get_format", "fdp_dot", "fdp_gemm", "fma_dot", "dd_dot",
     "FDP91", "GemmPlan", "GemmSite", "PlanCacheStats", "plan_gemm",
     "plan_cache_stats", "policy_from_plan", "register_plan", "reset_sites_seen",
     "sites_seen", "widen_config",

@@ -310,6 +310,43 @@ def to_float(spec: AccumulatorSpec, limbs: torch.Tensor,
     return torch.where(any_nz, v, torch.zeros_like(v))
 
 
+def to_float64(spec: AccumulatorSpec, limbs: torch.Tensor) -> torch.Tensor:
+    """Round the accumulator ONCE to float64 (53-bit RNE). The mantissa is
+    assembled from a 24-bit and a 29-bit piece of the magnitude, as the
+    reference builds it from two int32 pieces."""
+    L = spec.num_limbs
+    limbs = finalize(spec, limbs).to(torch.int64)
+    sign_neg = limbs[..., L - 1] < 0
+    mag = _negate_where(limbs, sign_neg)
+    any_nz = torch.any(mag != 0, dim=-1)
+    top_idx = torch.zeros(mag.shape[:-1], dtype=torch.int64, device=mag.device)
+    for l in range(L):
+        top_idx = torch.where(mag[..., l] != 0, l, top_idx)
+    top_val = torch.gather(mag, -1, top_idx[..., None])[..., 0]
+    hb = _ilog2(torch.clamp(top_val, min=1)) + top_idx * LIMB_BITS
+    p, lo_bits = 53, 29
+    take_from = hb - p + 1
+    hi = _extract_bits(mag, take_from + lo_bits, p - lo_bits)       # 24 bits
+    lo = _extract_bits(mag, take_from, lo_bits)                     # 29 bits
+    guard = _extract_bits(mag, take_from - 1, 1)
+    sticky = _any_below(mag, take_from - 2)
+    rnd = (guard == 1) & (sticky | ((lo & 1) == 1))
+    # hi * 2^29 + lo + rnd <= 2^53: exact in the integers and in f64
+    mant = ((hi << lo_bits) + lo + rnd.to(torch.int64)).to(torch.float64)
+    v = _ldexp_f64(mant, take_from + spec.lsb)
+    v = torch.where(sign_neg, -v, v)
+    return torch.where(any_nz, v, torch.zeros_like(v))
+
+
+def _ldexp_f64(x: torch.Tensor, exp: torch.Tensor) -> torch.Tensor:
+    """x * 2^exp in f64, rounded once: the power is split into two normal
+    powers of two assembled from f64 bits, the first product exact."""
+    e1 = torch.clamp(exp.to(torch.int64), -1022, 1023)
+    e2 = torch.clamp(exp.to(torch.int64) - e1, -1022, 1023)
+    pow2 = lambda e: ((e + 1023) << 52).view(torch.float64)
+    return x * pow2(e1) * pow2(e2)
+
+
 def _negate_where(limbs: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
     """Two's-complement negate across base-2^16 limbs where ``cond``. Input
     must be carry-normalized; output where cond: magnitude digits in
@@ -329,7 +366,7 @@ def _negate_where(limbs: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
 
 def _extract_bits(mag: torch.Tensor, start: torch.Tensor, nbits: int) -> torch.Tensor:
     """Bits [start, start+nbits) of the magnitude register. start may be
-    negative (those bits read as 0). nbits <= 24."""
+    negative (those bits read as 0). nbits <= 32 (three limbs hold them)."""
     j = torch.div(start, LIMB_BITS, rounding_mode="floor")
     s = start - j * LIMB_BITS                     # 0..15
     part0 = _limb_at(mag, j) >> s

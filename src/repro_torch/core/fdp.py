@@ -44,6 +44,13 @@ def fdp_dot(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
     return acc.to_float(spec, fdp_dot_limbs(a, b, spec, fmt))
 
 
+def fdp_dot64(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
+              fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
+    """Exact-accumulation dot product with 53-bit (f64) read-out (the SSH
+    benchmark's correct-bits axis)."""
+    return acc.to_float64(spec, fdp_dot_limbs(a, b, spec, fmt))
+
+
 def fdp_dot_limbs(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
                   fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
     """Accumulator register (carry-normalized limbs) of dot(a, b)."""
@@ -137,3 +144,74 @@ def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
             out[e] = fdp_gemm(x[start:stop].T, g[start:stop], spec, fmt)
         start = stop
     return out
+
+
+# ---------------------------------------------------------------------------
+# Baseline accumulators the paper compares against (ordered FMA chains).
+# Plain PyTorch on the inputs' device, sequential over k as the reference's
+# ``lax.scan`` is: one small op at a time, a baseline and not a fast path.
+# ---------------------------------------------------------------------------
+def fma_dot(a: torch.Tensor, b: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Sequential fused multiply-add accumulation in ``dtype`` (one rounding
+    per step), the conventional-FPU baseline of Fig. 2. XLA contracts the
+    reference's ``s + x * y`` into an FMA. Eager PyTorch rounds a product
+    and a sum apart and has no FMA op, so each step forms the correctly
+    rounded ``x * y + s`` from exact pieces (Boldo and Melquiond, "Emulation
+    of FMA and correctly rounded sums: proved algorithms using rounding to
+    odd", IEEE Trans. Comput. 2008): the exact product as p + e, the exact
+    sum s + p as h + t, then h + RO(t + e), RO rounding to odd. Exact while
+    nothing overflows or underflows, and the same bits on any device."""
+    a, b = a.to(dtype), b.to(dtype)
+    prods, errs = two_prod(a, b)             # elementwise, so computed up front
+    s = torch.zeros((), dtype=dtype, device=a.device)
+    for p, e in zip(prods, errs):
+        h, t = two_sum(s, p)
+        s = h + _add_round_to_odd(t, e)
+    return s
+
+
+def _add_round_to_odd(x, y):
+    """x + y rounded to odd: exact sums unchanged, otherwise the neighbour
+    of the exact sum whose last significand bit is 1."""
+    s, err = two_sum(x, y)
+    ints = torch.int64 if s.dtype == torch.float64 else torch.int32
+    even = (s.view(ints) & 1) == 0
+    inf = torch.full_like(s, float("inf"))
+    toward = torch.where(err > 0, inf, -inf)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+
+
+def two_sum(x, y):
+    s = x + y
+    bb = s - x
+    err = (x - (s - bb)) + (y - bb)
+    return s, err
+
+
+def two_prod(x, y):
+    """Exact product via Dekker splitting: x*y = p + e (p = rounded product)."""
+    p = x * y
+    return p, _dekker_err(x, y, p)
+
+
+def _dekker_err(x, y, p):
+    # split constant 2^ceil(prec/2)+1: f32 -> 4097, f64 -> 2^27+1
+    c = 134217729.0 if x.dtype == torch.float64 else 4097.0
+    xh = (x * c) - (x * c - x)
+    xl = x - xh
+    yh = (y * c) - (y * c - y)
+    yl = y - yh
+    return ((xh * yh - p) + xh * yl + xl * yh) + xl * yl
+
+
+def dd_dot(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64) -> torch.Tensor:
+    """Double-double (compensated) dot product in ``dtype``, the emulated
+    quad-precision FMA baseline of Fig. 2 (~2x mantissa bits)."""
+    a, b = a.to(dtype), b.to(dtype)
+    prods, errs = two_prod(a, b)             # elementwise, so computed up front
+    s = torch.zeros((), dtype=dtype, device=a.device)
+    c = torch.zeros((), dtype=dtype, device=a.device)
+    for p, pe in zip(prods, errs):
+        s, se = two_sum(s, p)
+        c = c + (se + pe)
+    return s + c

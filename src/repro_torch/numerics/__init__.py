@@ -17,8 +17,9 @@
 #   with calibrate() as trace, use_policy(MXU_FP32): <forward and backward>
 #   trace.save(path); plan = search(load_trace(path), budget_bits).plan
 #   plan.save("plan.json"); serve with --precision-plan plan.json
-# ``search(validators=...)`` waits for the workloads (ROADMAP.md queue 1
-# item 2); the latency column is timed without plan autotuning.
+# ``search(validators=build_validators(names, ctx))`` holds the plan to the
+# workloads end to end (``repro_torch.workloads``); the latency column is
+# timed without plan autotuning.
 from .trace import (ENVELOPE_VERSION, TRACE_VERSION, CalibrationTrace,
                     SiteProfile, build_envelope, calibrate, cfg_capacity,
                     config_fingerprint, load_trace)

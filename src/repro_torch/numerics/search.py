@@ -13,9 +13,10 @@ operand sample captured during calibration and scored on three axes:
     the site's dominant traced shape when ``measure_latency=True``.
 
 The assignment is the classic greedy: per site, the cheapest Pareto-optimal
-candidate whose error meets the (margin-adjusted) budget; then, if an
-end-to-end ``validate`` hook is supplied and the assembled policy misses the
-budget, the weakest site is upgraded along its frontier until it passes.
+candidate whose error meets the (margin-adjusted) budget; then, if the
+workload zoo (``validators``) or an end-to-end ``validate`` hook is supplied
+and the assembled policy misses, the weakest eligible site is upgraded
+along its frontier until it passes.
 
 Candidates run through the real dispatch path on the search's device (CUDA
 unless the caller asks otherwise): a ``pallas`` candidate launches the dense
@@ -60,13 +61,14 @@ def _default_fdp_mode(dev: torch.device) -> str:
 
 
 def _check_full_fp32(dev: torch.device) -> None:
-    """Native candidates are scored through cuBLAS on a card; with TF32 an
-    fp32 candidate keeps ~10 fraction bits and the picks change. Refuse
-    rather than switch it off behind the caller's back."""
+    """Native candidates (and the workloads' native sites) are scored
+    through cuBLAS on a card; with TF32 an fp32 GEMM keeps ~10 fraction bits
+    and the picks change. Refuse rather than switch it off behind the
+    caller's back."""
     if dev.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
                                or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "the search scores native fp32 candidates with full-fp32 matmuls: "
+            "native fp32 GEMMs are scored with full-fp32 matmuls: "
             "set torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest') first")
 
@@ -238,8 +240,7 @@ class SearchResult:
     plan: PrecisionPlan
     decisions: dict[str, SiteDecision]
     validated_bits: Optional[float]
-    # workload name -> ValidationReport; stays None until the workloads
-    # (``validators=``) are ported
+    # workload name -> ValidationReport when validators= drove the search
     reports: Optional[dict] = None
 
     def describe(self) -> str:
@@ -253,7 +254,13 @@ class SearchResult:
         lines.append(f"  modeled energy {m['modeled_energy_j']:.3e} J vs "
                      f"uniform 91-bit {m['baseline_energy_j']:.3e} J "
                      f"({m['energy_vs_baseline']:.1%})")
-        if self.validated_bits is not None:
+        if self.reports:
+            for name in sorted(self.reports):
+                lines.append("  workload " + self.reports[name].describe())
+            ups = m.get("validation_upgrades", [])
+            if ups:
+                lines.append(f"  validator-driven upgrades: {', '.join(ups)}")
+        elif self.validated_bits is not None:
             lines.append(f"  end-to-end validated: {self.validated_bits:.1f} "
                          "correct bits vs oracle")
         return "\n".join(lines)
@@ -294,20 +301,30 @@ def search(trace: CalibrationTrace, budget_bits: float, *,
     pick is the fewest-bytes frontier point holding ``aux_target_bits`` on
     the calibration sample.
 
-    ``validate`` maps a policy to measured end-to-end correct bits; while it
-    reports less than the budget, the weakest site whose phase is in
-    ``upgrade_phases`` is upgraded along its frontier, at most
-    ``max_upgrades`` times. ``validators`` (the workload zoo) is not ported
-    yet and raises.
+    End-to-end validation comes in two flavors:
+
+    * ``validators``: a sequence of ``repro_torch.workloads`` Validators
+      (``run(policy) -> ValidationReport``). All of them run on the
+      assembled policy; while any reports below its threshold, the upgrade
+      loop spends one Pareto-frontier upgrade per iteration on the weakest
+      site that failing workload says it can see (its report's
+      ``site_attribution`` patterns, else the validator's declared phases):
+      a loss-gradient workload drives ``@bwd`` upgrades while a logit probe
+      drives forward ones. Every report lands in ``plan.meta["validation"]``
+      (and the upgrade log in ``meta["validation_upgrades"]``), so the plan
+      carries the per-workload evidence it was accepted on.
+    * ``validate``: the legacy scalar hook, mapping a policy to measured
+      end-to-end correct bits; while it reports less than the budget, the
+      weakest site whose phase is in ``upgrade_phases`` is upgraded
+      (forward-only by default, since a forward validator cannot see bwd
+      assignments).
+
+    ``max_upgrades`` caps either loop. Passing both flavors is an error.
     """
     phases = tuple(phases)
     if validate is not None and validators:
         raise ValueError("pass either validate= (legacy scalar hook) or "
                          "validators= (workload zoo), not both")
-    if validators:
-        raise NotImplementedError(
-            "search(validators=...) needs the workloads, which are not ported "
-            "yet (ROADMAP.md queue 1 item 2); pass validate= or no validator")
     dev = resolve_device(device)
     _check_full_fp32(dev)
     fdp_mode = fdp_mode or _default_fdp_mode(dev)
@@ -351,6 +368,7 @@ def search(trace: CalibrationTrace, budget_bits: float, *,
         return _plan_from_decisions(name, decisions, budget_bits, default)
 
     validated = None
+    reports = upgrades_log = None
     if validate is not None:
         up_phases = tuple(upgrade_phases)
         for _ in range(max_upgrades + 1):
@@ -365,17 +383,70 @@ def search(trace: CalibrationTrace, budget_bits: float, *,
                 break
             weakest = min(upgradable, key=lambda d: d.pick.error_bits)
             weakest.upgrade()
+    elif validators:
+        reports, upgrades_log = _run_validator_loop(
+            validators, decisions, assemble, max_upgrades)
 
     plan = assemble()
     if validated is not None:
         plan.meta["validated_bits"] = validated
+    if reports is not None:
+        plan.meta["validation"] = {n: r.to_json()
+                                   for n, r in sorted(reports.items())}
+        plan.meta["validation_upgrades"] = list(upgrades_log)
+        # validated_bits keeps its meaning, end-to-end forward correct bits
+        # vs the uniform oracle: the logit-fidelity workload's score. Other
+        # workloads score in other units (repro caps at 53 stability bits),
+        # so absent logits it stays unset.
+        if "logits" in reports:
+            validated = reports["logits"].score
+            plan.meta["validated_bits"] = validated
     if getattr(trace, "fingerprint", None):
         # provenance: which persisted calibration this plan was searched from
         plan.meta["trace_fingerprint"] = trace.fingerprint
     # the runtime-checkable boundary of this plan's claims: traced per-site
     # exponent ranges + the deployed capacity
     plan.meta["envelope"] = build_envelope(trace, plan)
-    return SearchResult(plan, decisions, validated)
+    return SearchResult(plan, decisions, validated, reports=reports)
+
+
+def _run_validator_loop(validators, decisions, assemble, max_upgrades):
+    """Run the workload zoo on the assembled policy, spending Pareto-frontier
+    upgrades on sites the *failing* workloads attribute their deficit to.
+
+    One upgrade per iteration (the first failing validator in the caller's
+    order picks the weakest eligible site), and EVERY validator re-runs on
+    every iteration: an upgrade raises one site's accuracy but can regress an
+    orthogonal workload (a cheap bit-stable FDP point upgraded onto a
+    more-accurate native one loses K-reorder stability), so previously
+    passing reports cannot be assumed to stand. The loop always exits with
+    reports measured against the exact policy that ships.
+    """
+    reports: dict = {}
+    upgrades_log: list[str] = []
+    while True:
+        policy = assemble().to_policy()
+        for v in validators:
+            reports[v.name] = v.run(policy)
+        failing = [v for v in validators if not reports[v.name].passed]
+        if not failing or len(upgrades_log) >= max_upgrades:
+            break
+        target = None
+        for v in failing:
+            rep = reports[v.name]
+            eligible = [d for d in decisions.values() if d.can_upgrade()
+                        and v.eligible_site(d.site, rep)]
+            if eligible:
+                # weakest first: by the workload's own per-site attribution
+                # when it names exact sites, else by the search-time oracle
+                target = min(eligible, key=lambda d: rep.site_attribution.get(
+                    d.site, d.pick.error_bits))
+                break
+        if target is None:
+            break                      # failing, but nothing left to widen
+        target.upgrade()
+        upgrades_log.append(target.site)
+    return reports, upgrades_log
 
 
 def _plan_from_decisions(name, decisions, budget_bits,

@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train.optimizer, repro_torch.train.loop, "
             "repro_torch.checkpoint.store, repro_torch.data.synthetic, "
             "repro_torch.launch.train, repro_torch.numerics, repro_torch.numerics.plan, "
-            "repro_torch.core.energy, repro_torch.core.metrics, repro_torch.core.generator\n"
+            "repro_torch.core.energy, repro_torch.core.metrics, repro_torch.core.generator, "
+            "repro_torch.workloads, repro_torch.workloads.__main__, "
+            "repro_torch.data.conditioned\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -74,6 +76,22 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         TLT.main(["--arch", "paper-mlp", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, None, None, None, "unused")
+
+
+def test_workloads_refuse_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is legal here")
+    from repro_torch.workloads import KReorderStability, WorkloadContext
+    from repro_torch.workloads.__main__ import main as workloads_main
+    cfg = get_config("paper-mlp").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WorkloadContext.for_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WorkloadContext()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KReorderStability()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        workloads_main(["--plan", str(ROOT / "examples" / "plans" / "paper_mlp.json")])
 
 
 def test_serve_refuses_params_on_another_device():

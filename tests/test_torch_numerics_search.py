@@ -305,11 +305,16 @@ def test_validate_upgrade_loop_matches_the_reference():
 
 
 def test_validators_are_refused():
+    """Validators with the legacy hook are refused; alone they drive the
+    loop (``test_torch_workloads_search.py`` holds it to the reference)."""
     tr = _subtrace(TN, TRACE_OF["qwen3_0p6b"], ("attn_q",))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        TN.search(tr, BUDGET, validators=[object()], device="cpu")
     with pytest.raises(ValueError, match="not both"):
         TN.search(tr, BUDGET, validators=[object()], validate=lambda p: 0.0, device="cpu")
+    from repro_torch.workloads import WorkloadContext, build_validators
+    res = TN.search(tr, BUDGET, include_native=False, device="cpu", **GRID,
+                    validators=build_validators(["repro"], WorkloadContext(device="cpu")))
+    assert res.plan.meta["validation"]["repro"]["score"] == 53.0
+    assert res.plan.meta["validation_upgrades"] == [] and res.validated_bits is None
 
 
 def test_search_refuses_tf32_on_a_card():
