@@ -38,7 +38,10 @@ Phases (any failure exits non-zero before the final line):
      weights (whole, checked on the first 64 output columns); the decode
      sites and the training calls timed at 91 bits and at <9,6,-20> on the
      same inputs, beside their bounds;
-  3. qwen3-0.6b at full width served (4 prompts x 16 tokens, 16 generated)
+  3. first the init check: ``init(cfg, 0)`` of reduced qwen3-0.6b and
+     reduced dbrx-132b on the card torch.equal the same on the CPU moved to
+     the card (weights are drawn on the host for every device); then
+     qwen3-0.6b at full width served (4 prompts x 16 tokens, 16 generated)
      under the 91-bit FDP kernel policy, with the kernel's launch count
      set to 0 just before the first run and read just after it, and held
      against the FDP dispatches; then timing repeats in turns with the same
@@ -47,7 +50,7 @@ Phases (any failure exits non-zero before the final line):
      the kernels' summed time;
   4. a 2-layer cut of the same model: forward logits in ``pallas`` mode
      (kernel) torch.equal to ``simulate`` mode (plain);
-  5. dbrx-132b (MoE, 16 experts top-4) at full width, depth cut to 2 layers,
+  5. dbrx-132b (MoE, 16 experts top-4) at full width, depth cut to 1 layer,
      served the same way as phase 3: both kernels' launch counts set to 0
      just before the first run and read just after, each held against its
      sites' dispatches (dense: attention, router, lm_head; sorted-segment:
@@ -144,7 +147,26 @@ Phases (any failure exits non-zero before the final line):
      3 trials) against the exact value, FDP91 at 53 bits for every n; (e)
      ``python -m repro_torch.workloads --plan paper_mlp.json --tolerance 2``
      in process, its drift beside the JAX package's on the CPU;
- 18. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 18. the continuous engine (``launch.batching.ContinuousBatcher``): (a)
+     qwen3-0.6b at full width (phase 3's weights) under the 91-bit kernel
+     policy, 4 slots, max_len 160, 8 requests from torch.Generator(1) (phase
+     3's 4 prompts, then prompts of 4, 8, 12 and 16 tokens generating 8-16),
+     through one CUDA graph captured at warmup and through its eager twin
+     (``graph=False``): one capture, a step's dense launches equal to its
+     FDP dispatches at capture, the wrappers' counts over the build and the
+     first run equal to two eager warm-up steps and one captured step (a
+     replay goes through no wrapper), the profiler's kernel events a
+     replayed step equal to the captured step's launches, graph tokens
+     equal to eager tokens and the first four requests' to phase 3's;
+     tok/s (median of 3) and traced idle share beside phase 3's; (b)
+     dbrx-132b at 1 layer (phase 5's weights), 4 requests through 2 slots,
+     the same checks for both kernels; (c) the phase's spans exported with
+     ``obs.save_chrome_trace`` and read back (one ``serving.batcher_run``
+     an engine run), one registry snapshot printed;
+ 19. one JSON line of per-kernel numbers, then the ``ok`` line.
+
+The weights of each config are drawn once (``init``, seconds printed) and a
+host copy is kept; later phases of the same config and seed copy it back.
 
 The bound of a kernel time is the larger of its bytes (inputs read once,
 output written once) over 3.35 TB/s (H100 SXM HBM3, NVIDIA data sheet) and
@@ -180,7 +202,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH, PROMPT, GEN = 4, 16, 16
 SERVE_RUNS = 3
-MOE_LAYERS = 2          # dbrx-132b depth cut: 31.0 GB of f32 parameters
+TRACED_STEPS = 8        # engine steps traced for kernel events and idle share
+MOE_LAYERS = 1          # dbrx-132b depth cut: 17.97 GB of f32 parameters, one draw
+                        # for its serve and its training step
 # Training dbrx-132b: depth cut to 1 layer (17.97 GB of f32 parameters, as
 # much again of gradients, 9.1 GB of 8x64 Adam moments), 4 x 64 tokens
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 1, 4, 64, 3, 1e-4
@@ -202,6 +226,20 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+PHASE_S: dict = {}                 # phase -> seconds, host clock
+_PHASE = ["", 0.0]                 # the running phase and its start
+
+
+def phase(name: str) -> None:
+    """End the running phase (its seconds logged and kept in ``PHASE_S``)
+    and start ``name`` ("" starts none)."""
+    now = time.perf_counter()
+    if _PHASE[0]:
+        PHASE_S[_PHASE[0]] = now - _PHASE[1]
+        log(f"phase {_PHASE[0]} took {PHASE_S[_PHASE[0]]:.2f} s")
+    _PHASE[:] = [name, now]
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
@@ -226,38 +264,58 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
 
 
+def device_timeline(prof):
+    """(device events, busy µs, span µs) of a finished torch.profiler
+    session, read from its raw kineto events (building the session's
+    ``events()`` costs some twenty times as long, minutes for a traced
+    serve): device events as (name, start ns, end ns); busy the union of
+    them (a user annotation left out, such as a schedule's ProfilerStep
+    range, which the profiler also shows on the device: it is no device
+    work); span from the first event to the last, host events included
+    (the profiler's own bookkeeping events left out, as ``events()``
+    leaves them). None when there is no device event."""
+    from torch.autograd import DeviceType
+    raw = [e for e in prof.profiler.kineto_results.events()
+           if not e.name().startswith(("[memory]", "[OutOfMemory]", "profiler::_record_function"))]
+    dev_events = [(e.name(), e.start_ns(), e.end_ns()) for e in raw
+                  if e.device_type() == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", lambda: False)()
+                  and not e.name().startswith("ProfilerStep")]
+    if not dev_events:
+        return None
+    spans = sorted((start, end) for _, start, end in dev_events)
+    busy_ns, (lo, hi) = 0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy_ns, lo, hi = busy_ns + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    busy_ns += hi - lo
+    span_ns = max(e.end_ns() for e in raw) - min(e.start_ns() for e in raw)
+    return dev_events, busy_ns / 1e3, span_ns / 1e3
+
+
 def trace_serve(torch, serve_once) -> dict:
     """Run one serve under torch.profiler and read its device timeline:
     busy seconds (union of all device events), idle share of the trace's
     span, and the summed seconds and count of each FDP kernel; None when
     the profiler saw no device event."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = serve_once()
-    events = list(prof.events())
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    if not dev_events:
+    timeline = device_timeline(prof)
+    if timeline is None:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
-    busy_us, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy_us, lo, hi = busy_us + hi - lo, start, end
-        else:
-            hi = max(hi, end)
-    busy_us += hi - lo
-    span_us = (max(e.time_range.end for e in events)
-               - min(e.time_range.start for e in events))
+    dev_events, busy_us, span_us = timeline
     by_name: dict = {}
-    for e in dev_events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for name, start, end in dev_events:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     kernels = {}
     for label, symbol in TRACE_NAMES.items():
         # "fdp_gemm_kernel" is not a substring of "fdp_ragged_gemm_kernel"
-        evs = [e for e in dev_events if symbol in e.name]
+        evs = [(start, end) for name, start, end in dev_events if symbol in name]
         kernels[label] = {"count": len(evs),
-                          "s": sum(e.time_range.elapsed_us() for e in evs) / 1e6}
+                          "s": sum(end - start for start, end in evs) / 1e9}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return {"wall_s": wall, "span_s": span_us / 1e6, "device_busy_s": busy_us / 1e6,
             "idle_share": 1.0 - busy_us / span_us, "device_events": len(dev_events),
@@ -535,6 +593,217 @@ def workloads_phase(torch, dev, cfg, cfg2, searched_policy, legacy_plan, zoo_pol
             "launches": launches, "phase_s": phase_s}
 
 
+def traced_steps(torch, eng, make_requests, steps: int):
+    """``steps`` steps of the engine ``eng`` over ``make_requests()`` under
+    torch.profiler, after one untraced step inside the same session (a
+    schedule's warm-up window: the first kernels of a trace can go missing
+    while the profiler starts), then the run finished and the cache reset.
+    Returns the window's FDP kernel events by kernel, device busy seconds
+    (union of its device events), span (first to last event) and idle
+    share; None when the profiler recorded no device event."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for r in make_requests():
+        eng.submit(r)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        eng.step()
+        prof.step()
+        for _ in range(steps):
+            if not eng.step():
+                fail(f"the engine drained before {steps} traced steps")
+        prof.step()
+    eng.run()
+    eng.reset_cache()
+    timeline = device_timeline(prof)
+    if timeline is None:
+        return None
+    dev_events, busy_us, span_us = timeline
+    return {"steps": steps, "device_events": len(dev_events), "span_s": span_us / 1e6,
+            "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / span_us,
+            "kernels": {label: sum(symbol in name for name, _, _ in dev_events)
+                        for label, symbol in TRACE_NAMES.items()}}
+
+
+_HOST_WEIGHTS: dict = {}
+
+
+def weights(torch, cfg, dev):
+    """The parameters of ``cfg`` from seed 0 on ``dev``. The first call for
+    a config runs ``init(cfg, 0, dev)``, prints its seconds, and keeps a host
+    copy; a later call copies that copy back to the card instead of drawing
+    again (the same weights: ``init`` draws every tensor on the host
+    whatever the device). A config that is a kept one cut to fewer layers
+    takes the kept one's first layers: ``init`` draws the embedding and the
+    head, then layer after layer, so those are the cut model's own draws
+    (the init check in phase 3 holds a reduced config to this)."""
+    from repro_torch.models import init
+    from repro_torch.models.transformer import Transformer
+    t = time.perf_counter()
+    host = _HOST_WEIGHTS.get(cfg)
+    deeper = [c for c in _HOST_WEIGHTS if c.n_layers > cfg.n_layers
+              and dataclasses.replace(c, n_layers=cfg.n_layers) == cfg]
+    if host is None and deeper:
+        host = _HOST_WEIGHTS[deeper[0]]
+    if host is None:
+        params = init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in params.parameters())
+        log(f"init {cfg.name} at {cfg.n_layers} layers, full width: {n / 1e9:.3f} G f32 "
+            f"parameters = {4 * n / 1e9:.2f} GB drawn in {time.perf_counter() - t:.2f} s")
+        _HOST_WEIGHTS[cfg] = {k: p.detach().cpu() for k, p in params.named_parameters()}
+        return params
+    params = Transformer(cfg, None, getattr(torch, cfg.param_dtype), dev)
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(host[k])
+    torch.cuda.synchronize()
+    log(f"{cfg.name} at {cfg.n_layers} layers: the seed-0 weights copied back to the card "
+        f"in {time.perf_counter() - t:.2f} s"
+        + (f" (the first layers of the kept {deeper[0].n_layers}-layer draw)"
+           if deeper and cfg not in _HOST_WEIGHTS else ""))
+    return params
+
+
+def drop_weights(cfg) -> None:
+    _HOST_WEIGHTS.pop(cfg, None)
+
+
+def engine_phase(torch, dev, cfg, params, make_requests, *, n_slots: int, max_len: int,
+                 policy, label: str) -> dict:
+    """Phase 18 on one model: a graph engine and its eager twin
+    (``graph=False``), each built once under ``policy`` and driven
+    ``SERVE_RUNS`` times over ``make_requests()`` (``reset_cache`` between
+    runs), then once more with ``TRACED_STEPS`` of its steps under
+    torch.profiler (kernel events, busy time and idle share of those steps:
+    a whole run traces too many events to read back in the script's time).
+    Every kernel count is set to 0 just before each engine is built and
+    read just after its first run. The wrappers count what ran (the graph
+    engine's two eager warm-up steps, the eager twin's run) in
+    ``launches`` and what the capture recorded in ``captured``; a replay
+    goes through no wrapper, so the replays' launches are the profiler's
+    kernel events. Checks one capture; a step's captured launches equal to
+    its FDP dispatches at capture (the dense kernel: every site but the
+    experts'); the graph engine's counts equal to two warm-up steps and one
+    captured step, with no dispatch in its runs; the eager twin's equal to
+    its dispatches; the traced replays' kernel events equal to the
+    captured step's launches a step; equal tokens across engines and runs.
+    Returns the numbers, the tokens and the count of engine runs (each
+    records one ``serving.batcher_run`` span)."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.batching import ContinuousBatcher
+    ragged_sites = {"moe_in", "moe_gate", "moe_out"}
+    res, tokens, n_runs = {}, {}, 0
+    for graph in (True, False):
+        name = "graph" if graph else "eager"
+        D.reset_sites_seen()
+        for w in K.KERNELS.values():
+            w.launches = w.captured = 0
+        t = time.perf_counter()
+        eng = ContinuousBatcher(cfg, params, n_slots=n_slots, max_len=max_len,
+                                warmup=policy, graph=graph)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        if graph:
+            if eng.capture_count != 1:
+                fail(f"{label}: {eng.capture_count} captures at warmup, not 1")
+            per_step = eng.step_launches
+            dense = sum(n for s, n in eng.step_dispatches.items() if s not in ragged_sites)
+            ragged = sum(n for s, n in eng.step_dispatches.items() if s in ragged_sites)
+            want = {"fdp_gemm": dense, **({"fdp_ragged_gemm": ragged} if ragged else {})}
+            if per_step != want:
+                fail(f"{label}: launches a step at capture {per_step} != FDP dispatches "
+                     f"a step {want}")
+        secs, outs, n_tok = [], [], 0
+
+        def run_once():
+            reqs = make_requests()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if not all(r.done for r in reqs):
+                fail(f"{label}: a request did not finish")
+            eng.reset_cache()
+            return [r.out for r in reqs], wall
+
+        for i in range(SERVE_RUNS):
+            out, wall = run_once()
+            if i == 0:
+                counts = {n: w.launches for n, w in K.KERNELS.items() if w.launches}
+                captured = {n: w.captured for n, w in K.KERNELS.items() if w.captured}
+                calls = D.site_calls()
+                if graph:
+                    replayed = eng.replays
+                    made = {n: 2 * k for n, k in per_step.items()}
+                    if (counts != made or captured != per_step
+                            or sum(calls.values()) != 3 * sum(eng.step_dispatches.values())):
+                        fail(f"{label}: the graph engine's build and first run counted "
+                             f"launches {counts} (two warm-up steps: {made}), captured "
+                             f"{captured} (a step: {per_step}) and {sum(calls.values())} "
+                             f"dispatches (three steps': "
+                             f"{3 * sum(eng.step_dispatches.values())})")
+                else:
+                    dense = sum(n for s, n in calls.items() if s not in ragged_sites)
+                    ragged = sum(n for s, n in calls.items() if s in ragged_sites)
+                    made = {"fdp_gemm": dense, **({"fdp_ragged_gemm": ragged} if ragged
+                                                  else {})}
+                    if counts != made or captured:
+                        fail(f"{label}: the eager engine's launches {counts} != its FDP "
+                             f"dispatches {made}, or it captured {captured}")
+                first_counts = counts
+            secs.append(wall)
+            outs.append(out)
+            n_tok = sum(len(o) for o in out)
+        if any(o != outs[0] for o in outs):
+            fail(f"{label}: the {name} engine's tokens differ between runs")
+        trace = traced_steps(torch, eng, make_requests, TRACED_STEPS)
+        n_runs += SERVE_RUNS + 1
+        if trace is None:
+            log(f"{label}: torch.profiler recorded no device events in the {name} engine's "
+                f"traced steps: their kernel events and idle share are not measured")
+        elif graph:
+            stepped = {n: trace["kernels"][n] for n in per_step}
+            if stepped != {n: k * TRACED_STEPS for n, k in per_step.items()}:
+                fail(f"{label}: {TRACED_STEPS} traced replays hold kernel events {stepped}, "
+                     f"not {per_step} a step")
+            log(f"{label}: {TRACED_STEPS} replayed steps under torch.profiler hold "
+                f"{stepped} kernel events = {per_step} a step")
+        med = sorted(secs)[len(secs) // 2]
+        tokens[name] = outs[0]
+        res[name] = {"build_s": build_s, "serve_s": secs, "tokens": n_tok,
+                     "tok_s": n_tok / med, "launches_built_and_first_run": first_counts,
+                     **({"replays_first_run": replayed} if graph else {}),
+                     "capture_count": eng.capture_count,
+                     "step_launches": dict(eng.step_launches),
+                     "step_dispatches": sum(eng.step_dispatches.values()),
+                     "traced_steps": trace}
+        idle = ("not measured (the profiler recorded no device events)" if trace is None
+                else f"{100 * trace['idle_share']:.1f}% over {TRACED_STEPS} steps")
+        log(f"{label}, {name} engine ({n_slots} slots, max_len {max_len}, {cfg.n_layers} "
+            f"layers): built in {build_s:.2f} s; {SERVE_RUNS} runs of {n_tok} generated "
+            f"tokens: {', '.join(f'{x:.3f}' for x in secs)} s; median {med:.3f} s = "
+            f"{n_tok / med:.2f} tok/s; "
+            + (f"launches counted by the wrappers over the build and the first run "
+               f"{first_counts} (two warm-up steps), captured {per_step} a step, "
+               f"{replayed} replays in the first run (through no wrapper); captures "
+               f"{eng.capture_count}" if graph
+               else f"first run's launches {first_counts}")
+            + f"; traced idle share {idle}")
+        if trace is not None:
+            log(f"  traced {name} steps: span {trace['span_s']:.4f} s, device busy "
+                f"{trace['device_busy_s']:.4f} s, {trace['device_events']} device events, "
+                f"FDP kernel events {trace['kernels']}")
+        del eng
+    if tokens["graph"] != tokens["eager"]:
+        fail(f"{label}: graph tokens != eager tokens")
+    log(f"{label}: graph engine tokens == eager engine tokens for every request")
+    return {"result": res, "tokens": tokens["graph"], "runs": n_runs}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -566,6 +835,7 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # -- 1. the card and the build ------------------------------------------
+    phase("1")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -608,6 +878,7 @@ def main() -> None:
              f"the dense, sorted-segment and weight-gradient kernels, not 76 each")
 
     # -- 2. kernels vs plain versions on the card ----------------------------
+    phase("2")
     P91 = AccumulatorSpec.paper_91bit()
     RNE = AccumulatorSpec(30, 30, -30, round_mode="rne")
     SAT = AccumulatorSpec(2, 4, -20, overflow_mode="saturate")
@@ -971,6 +1242,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 3. and 5. serve a model at full width -------------------------------
+    phase("3")
     def serve_phase(cfg, params, counters: dict, site_ms: dict):
         """Serve under the kernel policy with every counter set to 0 just
         before the first run and read just after; then timing repeats in
@@ -1053,7 +1325,7 @@ def main() -> None:
             f"{SERVE_RUNS} runs: {', '.join(f'{x:.3f}' for x in fp32_s)}; median "
             f"{med32:.3f} s = {BATCH * GEN / med32:.2f} tok/s; FDP/fp32 = "
             f"{med / med32:.2f}x; greedy tokens agree on {100 * agree:.1f}%")
-        return {"launches": launches, "calls": calls, "serve_s": fdp_s,
+        return {"launches": launches, "calls": calls, "serve_s": fdp_s, "tokens": toks.tolist(),
                 "fp32_serve_s": fp32_s, "tok_s": BATCH * GEN / med,
                 "fp32_tok_s": BATCH * GEN / med32, "kernel_s_estimate": kernel_ms / 1e3,
                 "trace": {name: t and {k: v for k, v in t.items() if k != "top"}
@@ -1068,14 +1340,31 @@ def main() -> None:
                                 reps=20 if site == "lm_head" else 50)
         return out
 
-    params = init(cfg, seed=0, device=dev)
+    # the init check: one seed gives the same weights on the card as on the
+    # CPU (every tensor is drawn on the host, then scaled on its device)
+    for rcfg in (cfg.reduced(), get_config("dbrx-132b").reduced()):
+        on_cpu = dict(init(rcfg, seed=0, device="cpu").named_parameters())
+        for name, p in init(rcfg, seed=0, device=dev).named_parameters():
+            if not torch.equal(p.detach(), on_cpu[name].detach().to(dev)):
+                fail(f"init({rcfg.name} reduced, 0) on the card != on the CPU at {name}")
+        cut = init(dataclasses.replace(rcfg, n_layers=rcfg.n_layers - 1), seed=0, device="cpu")
+        for name, p in cut.named_parameters():
+            if not torch.equal(p, on_cpu[name]):
+                fail(f"init({rcfg.name} reduced) cut by a layer is not the first layers of "
+                     f"the deeper draw at {name}")
+        log(f"init({rcfg.name} reduced, seed 0) on the card torch.equal init on the CPU "
+            f"moved to the card, all {len(on_cpu)} parameters; cut by a layer, its "
+            f"parameters are the deeper draw's")
+
+    params = weights(torch, cfg, dev)
     spec_ms = dense_site_ms(SITES)
     qwen = serve_phase(cfg, params, {"fdp_gemm": (K.fdp_gemm, set(SITES))}, spec_ms)
     del params
 
     # -- 4. kernel path vs plain path at model level -------------------------
+    phase("4")
     def pallas_equals_simulate(cfg, batch_shape, seed):
-        params = init(cfg, seed=0, device=dev)
+        params = weights(torch, cfg, dev)
         batch = {"tokens": torch.randint(0, cfg.vocab_size, batch_shape,
                                          generator=torch.Generator().manual_seed(seed)).to(dev)}
         simulate = D.NumericsPolicy(dataclasses.replace(FDP91_KERNEL.default,
@@ -1106,7 +1395,8 @@ def main() -> None:
 
     pallas_equals_simulate(dataclasses.replace(cfg, n_layers=2), (BATCH, PROMPT), seed=2)
 
-    # -- 5. serve dbrx-132b (MoE) at full width, 2 layers --------------------
+    # -- 5. serve dbrx-132b (MoE) at full width, 1 layer ---------------------
+    phase("5")
     mhkv = mcfg.n_kv_heads * mcfg.head_dim
     MOE_DENSE = {
         "attn_q": (BATCH, 1, md, mcfg.n_heads * mcfg.head_dim),
@@ -1121,12 +1411,7 @@ def main() -> None:
     moe_ms = dense_site_ms(MOE_DENSE)
     moe_ms["moe_router"] = router["ms"]
     moe_ms.update({s: r["ms"] for s, r in ragged_sites.items()})
-    t = time.perf_counter()
-    params = init(mcfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    log(f"dbrx-132b at {MOE_LAYERS} layers: {n_params / 1e9:.3f} G f32 parameters = "
-        f"{4 * n_params / 1e9:.2f} GB, initialized in {time.perf_counter() - t:.2f} s")
+    params = weights(torch, mcfg, dev)
     dbrx = serve_phase(mcfg, params, {
         "fdp_gemm": (K.fdp_gemm, set(MOE_DENSE) | {"moe_router"}),
         "fdp_ragged_gemm": (K.fdp_ragged_gemm, set(MOE_SITES))}, moe_ms)
@@ -1134,9 +1419,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 6. MoE kernel path vs plain path at model level ---------------------
+    phase("6")
     dbrx_eq = pallas_equals_simulate(dataclasses.replace(mcfg, n_layers=1), (1, 4), seed=5)
 
     # -- 7. per-kernel numbers -----------------------------------------------
+    phase("7")
     def at_shape(site):
         B, M, Kd, N = SITES[site]
         a, b = operands(B, M, Kd, N, FP32, b_scale=Kd ** -0.5, bcast=True)
@@ -1157,6 +1444,7 @@ def main() -> None:
             f"{r['ms']:.4f} ms = {100 * r['bound_ms'] / r['ms']:.1f}% of bound; plain "
             f"{r['plain_ms']:.2f} ms" + (f" on {r['plain_at']}" if "plain_at" in r else ""))
     # -- 8. the weight-gradient kernel; kernels 1 and 3 at backward shapes ----
+    phase("8")
     tcfg = dataclasses.replace(mcfg, n_layers=TRAIN_LAYERS)
     n_tok = TRAIN_BATCH * TRAIN_SEQ               # T_rows routed rows, gs_train (phase 2)
 
@@ -1337,6 +1625,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 9. train dbrx-132b at full width, 1 layer --------------------------
+    phase("9")
     qcfg = parse_quant("8x64")
     data = SyntheticLM(tcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
     batches = [data.batch(i).as_dict() for i in range(TRAIN_STEPS)]
@@ -1363,7 +1652,7 @@ def main() -> None:
     def train_run(policy, count_first=False):
         """TRAIN_STEPS steps from seed 0: (params, opt, state, seconds per step,
         losses, first-step launches and dispatches, peak bytes)."""
-        params = init(tcfg, seed=0, device=dev)
+        params = weights(torch, tcfg, dev)
         opt = make_opt()
         state = opt.init(params)
         step = make_train_step(tcfg, opt, remat="none", numerics_policy=policy)
@@ -1461,7 +1750,8 @@ def main() -> None:
         log("  top device time: " + "; ".join(f"{n} {x:.3f} s" for n, x in t["top"]))
 
     # -- 10. one loss and backward: pallas gradients == simulate gradients ----
-    params = init(tcfg, seed=0, device=dev)
+    phase("10")
+    params = weights(torch, tcfg, dev)
     small = SyntheticLM(tcfg.vocab_size, 4, 1, seed=7, device=dev).batch(0).as_dict()
     loss_fn = make_loss_fn(tcfg, remat="none")
     names, leaves = zip(*params.named_parameters())
@@ -1494,6 +1784,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 11. the fault-tolerant Trainer on the card ---------------------------
+    phase("11")
     rcfg = get_config("dbrx-132b").reduced()
     ropt = adamw(lr=1e-3, state_quant={"mu": qcfg, "nu": qcfg})
     rstep = make_train_step(rcfg, ropt, remat="none", numerics_policy=FDP91_KERNEL)
@@ -1525,6 +1816,7 @@ def main() -> None:
     del runs
 
     # -- 12. the seed-order kernel (impl="loop") against plain and vector ------
+    phase("12")
     SEED_TILE = D.GemmPlan(32, 32, 128)
 
     def operands_2d(M, Kd, N, fmt, a_scale=1.0, b_scale=1.0, positive=False,
@@ -1608,6 +1900,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 13. the generator: native, simulate and pallas targets --------------
+    phase("13")
     from repro_torch.core import metrics
     from repro_torch.core.generator import generate_gemm
     import numpy as np
@@ -1644,6 +1937,7 @@ def main() -> None:
                             for t, v in bits.items()))
 
     # -- 14. qwen3-0.6b at full width, served under a PrecisionPlan from JSON --
+    phase("14")
     from repro_torch.numerics import PrecisionPlan, SitePlan
     from repro_torch.train.optimizer import state_quant_from_policy
 
@@ -1660,7 +1954,7 @@ def main() -> None:
     log("precision plan saved and loaded back:\n" + plan.describe())
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(1))
-    params = init(cfg, seed=0, device=dev)
+    params = weights(torch, cfg, dev)
 
     def serve_under(policy):
         with D.use_policy(policy):
@@ -1729,7 +2023,7 @@ def main() -> None:
                                    name=policy.name + "/simulate")
 
     cfg2 = dataclasses.replace(cfg, n_layers=2)
-    params = init(cfg2, seed=0, device=dev)
+    params = weights(torch, cfg2, dev)
     batch = {"tokens": torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT),
                                      generator=torch.Generator().manual_seed(2)).to(dev)}
     with torch.no_grad():
@@ -1755,9 +2049,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 15. the checked-in zoo plan, unchanged, at full width ----------------
+    phase("15")
     zoo_path = os.path.join(ROOT, "examples", "plans", "qwen3_0p6b.json")
     zoo_policy = D.policy_from_plan(zoo_path)
-    params = init(cfg, seed=0, device=dev)
+    params = weights(torch, cfg, dev)
     all_kernels = (K.fdp_gemm, K.fdp_ragged_gemm, K.fdp_ragged_dw, K.fdp_gemm_looped)
     D.reset_sites_seen()
     for w in all_kernels:
@@ -1782,12 +2077,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 16. the tailoring loop at full width: calibrate, search, serve ------
+    phase("16")
     from repro_torch.numerics import (calibrate, config_fingerprint, load_plan, load_trace,
                                       search)
 
     search_mod = importlib.import_module("repro_torch.numerics.search")
     t16 = time.perf_counter()
-    params = init(cfg, seed=0, device=dev)
+    params = weights(torch, cfg, dev)
     cgen = torch.Generator().manual_seed(3)
     cal_batch = {k: torch.randint(0, cfg.vocab_size, (PROBE_BATCH, PROBE_SEQ),
                                   generator=cgen).to(dev) for k in ("tokens", "targets")}
@@ -2065,7 +2361,7 @@ def main() -> None:
         f"{D.MXU_FP32.name} (phase 3, this run)")
     del params
     torch.cuda.empty_cache()
-    params = init(cfg2, seed=0, device=dev)
+    params = weights(torch, cfg2, dev)
     with torch.no_grad():
         lt = {}
         for name, pol in (("plan", searched_policy), ("twin", simulate_twin(searched_policy)),
@@ -2115,9 +2411,99 @@ def main() -> None:
         "phase_s": phase16_s}
 
     # -- 17. the workload zoo and the validated search at full width ---------
+    phase("17")
     workloads = workloads_phase(torch, dev, cfg, cfg2, searched_policy, res_l.plan,
                                 zoo_policy, FDP_GRID, res_k, card_search, validating)
+    torch.cuda.empty_cache()
 
+    # -- 18. the continuous engine on one CUDA graph a model ------------------
+    phase("18")
+    from repro_torch.launch.batching import Request
+    from repro_torch.obs import default_registry, recorder, save_chrome_trace
+    t18 = time.perf_counter()
+    recorder().clear()
+
+    def qwen_requests():
+        """Phase 3's 4 prompts (16 tokens, 16 generated), then prompts of 4,
+        8, 12 and 16 tokens generating 8-16 each, from torch.Generator(1)."""
+        g = torch.Generator().manual_seed(1)
+        first = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g)
+        reqs = [Request(uid=i, prompt=row.tolist(), max_new=GEN) for i, row in enumerate(first)]
+        for i, n in enumerate((4, 8, 12, 16)):
+            prompt = torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+            reqs.append(Request(uid=BATCH + i, prompt=prompt,
+                                max_new=int(torch.randint(8, GEN + 1, (1,), generator=g))))
+        return reqs
+
+    def dbrx_requests():
+        g = torch.Generator().manual_seed(2)
+        return [Request(uid=i, prompt=torch.randint(0, mcfg.vocab_size, (n,),
+                                                    generator=g).tolist(), max_new=m)
+                for i, (n, m) in enumerate(((8, 8), (4, 6), (6, 8), (8, 4)))]
+
+    params = weights(torch, cfg, dev)
+    eng_q = engine_phase(torch, dev, cfg, params, qwen_requests, n_slots=BATCH, max_len=160,
+                         policy=FDP91_KERNEL, label="qwen3-0.6b continuous engine")
+    if eng_q["tokens"][:BATCH] != qwen["tokens"]:
+        fail("the continuous engine's first four requests != phase 3's tokens")
+    t3 = qwen["trace"][FDP91_KERNEL.name]
+    log(f"qwen3-0.6b continuous engine: the first four requests' tokens == phase 3's "
+        f"(admitted at cursor 0). Beside phase 3's simple serve (this run): "
+        f"{qwen['tok_s']:.2f} tok/s, traced idle share "
+        + ("not measured" if t3 is None else f"{100 * t3['idle_share']:.1f}%")
+        + f"; graph engine {eng_q['result']['graph']['tok_s']:.2f} tok/s, eager engine "
+        f"{eng_q['result']['eager']['tok_s']:.2f} tok/s")
+    del params
+    drop_weights(cfg)
+    torch.cuda.empty_cache()
+    params = weights(torch, mcfg, dev)                    # phase 5's weights
+    eng_d = engine_phase(torch, dev, mcfg, params, dbrx_requests, n_slots=2, max_len=64,
+                         policy=FDP91_KERNEL, label="dbrx-132b continuous engine")
+    del params
+    drop_weights(mcfg)
+    torch.cuda.empty_cache()
+    # (c) the phase's spans, exported and read back
+    n_runs = eng_q["runs"] + eng_d["runs"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase18_trace.json")
+        n_ev = save_chrome_trace(path)
+        with open(path) as fh:
+            doc = json.load(fh)
+    evs = doc.get("traceEvents", [])
+    runs = [e for e in evs if e["name"] == "serving.batcher_run"]
+    if len(evs) != n_ev or len(runs) != n_runs or any(
+            e["ph"] != "X" or e["dur"] < 0 or e["cat"] != "serving" or e["args"]["steps"] < 1
+            for e in runs):
+        fail(f"phase 18's chrome trace: {n_ev} events, {len(runs)} serving.batcher_run "
+             f"(expected {n_runs} engine runs), or a malformed event")
+    phase18_s = time.perf_counter() - t18
+    log(f"phase 18's spans saved with save_chrome_trace and loaded back: {n_ev} events, "
+        f"{len(runs)} serving.batcher_run == {n_runs} engine runs, steps "
+        f"{sorted({e['args']['steps'] for e in runs})}. Phase 18 took {phase18_s:.2f} s")
+    log("obs registry snapshot: " + json.dumps(default_registry().snapshot(), sort_keys=True))
+    # what the wrappers counted: the graph engines' warm-up steps and the
+    # eager twins' first runs. A replay goes through no wrapper: the replays'
+    # kernels are the profiler's events, under their own key.
+    engine_launches = {
+        n: {f"{model} continuous engine, {what} (phase 18)":
+            r[k]["launches_built_and_first_run"].get(n, 0)
+            for model, r in (("qwen3-0.6b", eng_q["result"]), ("dbrx-132b", eng_d["result"]))
+            for k, what in (("graph", "graph warm-up"), ("eager", "eager"))
+            if n == "fdp_gemm" or model == "dbrx-132b"}
+        for n in ("fdp_gemm", "fdp_ragged_gemm")}
+    replay_events = {
+        n: {model: None if tr is None else {"replays": tr["steps"],
+                                            "kernel_events": tr["kernels"][n]}
+            for model, tr in (("qwen3-0.6b", eng_q["result"]["graph"]["traced_steps"]),
+                              ("dbrx-132b", eng_d["result"]["graph"]["traced_steps"]))
+            if n == "fdp_gemm" or model == "dbrx-132b"}
+        for n in ("fdp_gemm", "fdp_ragged_gemm")}
+    continuous = {"qwen3-0.6b": eng_q["result"], "dbrx-132b": eng_d["result"],
+                  "trace_events": n_ev, "phase_s": phase18_s}
+
+    phase("")
+    log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
+        f"phases 1-18 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -2127,7 +2513,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/fdp_gemm.py:65",
         "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
                      + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
-                     + tailored_launches + workloads["launches"]["total"]),
+                     + tailored_launches + workloads["launches"]["total"]
+                     + sum(engine_launches["fdp_gemm"].values())),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -2136,7 +2523,9 @@ def main() -> None:
                              "qwen3-0.6b serve from the searched plan (phase 16)":
                                  tailored_launches,
                              "qwen3-0.6b workloads and validated search (phase 17)":
-                                 workloads["launches"]["total"]},
+                                 workloads["launches"]["total"],
+                             **engine_launches["fdp_gemm"]},
+        "graph_replays_traced": replay_events["fdp_gemm"],
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
@@ -2145,13 +2534,17 @@ def main() -> None:
         "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
+        "continuous": continuous,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",
         "replaces": "src/repro/kernels/fdp_gemm.py:282",
-        "launches": dbrx["launches"]["fdp_ragged_gemm"] + train["launches"]["fdp_ragged_gemm"],
+        "launches": (dbrx["launches"]["fdp_ragged_gemm"] + train["launches"]["fdp_ragged_gemm"]
+                     + sum(engine_launches["fdp_ragged_gemm"].values())),
         "launches_by_path": {"dbrx-132b serve": dbrx["launches"]["fdp_ragged_gemm"],
-                             "dbrx-132b train step": train["launches"]["fdp_ragged_gemm"]},
+                             "dbrx-132b train step": train["launches"]["fdp_ragged_gemm"],
+                             **engine_launches["fdp_ragged_gemm"]},
+        "graph_replays_traced": replay_events["fdp_ragged_gemm"],
         "max_abs_err": ragged_err,
         "ms": moe_in["ms"], "plain_ms": moe_in["plain_ms"], "bound_ms": moe_in["bound_ms"],
         "bound_by": moe_in["bound_by"], "library_ms": None,

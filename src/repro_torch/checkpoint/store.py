@@ -13,7 +13,7 @@ checkpoint; ``load_latest`` skips checkpoints whose manifest or checksums
 do not validate. Tensors are saved from the device as numpy arrays and come
 back as numpy arrays; the caller moves them to its device. Restoring onto
 another mesh (the reference's ``shardings``) comes with multi-device
-support (ROADMAP queue 1 item 12).
+support (ROADMAP queue 1, *Multi-device*).
 """
 
 from __future__ import annotations

@@ -44,6 +44,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.obs.registry import default_registry as _obs_registry
+
 from .accumulator import SAFE_CHUNK, AccumulatorSpec
 from .formats import BF16, FP32, FloatFormat, PositFormat
 
@@ -406,7 +408,9 @@ def _heuristic_plan(batch: int, m: int, n: int, k: int) -> GemmPlan:
 
 @dataclasses.dataclass(frozen=True)
 class PlanCacheStats:
-    """Typed snapshot of the plan cache's counters. ``autotuned`` and
+    """Typed snapshot of the plan cache's counters, a view over the obs
+    registry (``repro_plan_cache_ops_total{op=...}`` and
+    ``repro_plan_cache_size``, the reference's names). ``autotuned`` and
     ``persisted_loads`` stay 0 in the port until plan autotuning and the
     schedule zoo are ported."""
 
@@ -421,8 +425,16 @@ class PlanCacheStats:
 
 
 _PLAN_CACHE: dict = {}
-_PLAN_OPS = {"hits": 0, "misses": 0, "autotuned": 0, "persisted_loads": 0}
 _PLAN_LOCK = threading.Lock()
+
+# The plan-cache counters live in the obs registry (stdlib-only at this
+# layer): one source for plan_cache_stats() and the Prometheus/JSON
+# exposition.
+_PLAN_OPS = _obs_registry().counter(
+    "repro_plan_cache_ops_total",
+    "GemmPlan cache operations (hit/miss/autotuned/persisted_load)", ("op",))
+_PLAN_SIZE = _obs_registry().gauge(
+    "repro_plan_cache_size", "resident GemmPlan cache entries")
 
 
 def plan_gemm(m: int, n: int, k: int, *, fmt, spec: AccumulatorSpec,
@@ -433,10 +445,12 @@ def plan_gemm(m: int, n: int, k: int, *, fmt, spec: AccumulatorSpec,
     with _PLAN_LOCK:
         cached = _PLAN_CACHE.get(key)
         if cached is not None:
-            _PLAN_OPS["hits"] += 1
+            _PLAN_OPS.inc(op="hits")
             return cached
-        _PLAN_OPS["misses"] += 1
-        return _PLAN_CACHE.setdefault(key, _heuristic_plan(batch, m, n, k))
+        _PLAN_OPS.inc(op="misses")
+        plan = _PLAN_CACHE.setdefault(key, _heuristic_plan(batch, m, n, k))
+        _PLAN_SIZE.set(len(_PLAN_CACHE))
+        return plan
 
 
 def register_plan(m: int, n: int, k: int, plan: GemmPlan, *, fmt,
@@ -446,18 +460,23 @@ def register_plan(m: int, n: int, k: int, plan: GemmPlan, *, fmt,
     key = (batch, m, n, k, fmt.name, spec, backend)
     with _PLAN_LOCK:
         _PLAN_CACHE[key] = dataclasses.replace(plan, source="override")
+        _PLAN_SIZE.set(len(_PLAN_CACHE))
 
 
 def plan_cache_stats() -> PlanCacheStats:
-    """Counters of the process-global plan cache."""
+    """Counters of the process-global plan cache: a view over the obs
+    registry's plan-cache families."""
     with _PLAN_LOCK:
-        return PlanCacheStats(size=len(_PLAN_CACHE), **_PLAN_OPS)
+        size = len(_PLAN_CACHE)
+    return PlanCacheStats(size=size, **{op: int(_PLAN_OPS.value(op=op)) for op in (
+        "hits", "misses", "autotuned", "persisted_loads")})
 
 
 def clear_plan_cache() -> None:
     with _PLAN_LOCK:
         _PLAN_CACHE.clear()
-        _PLAN_OPS.update(dict.fromkeys(_PLAN_OPS, 0))
+        _PLAN_SIZE.set(0)
+    _PLAN_OPS.clear()
 
 
 # ---------------------------------------------------------------------------

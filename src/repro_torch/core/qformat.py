@@ -9,8 +9,9 @@ params) and gradient collectives (bytes moved).
 Site identity: ``StateSite("opt.m").key == "opt.m@state"`` and
 ``CollectiveSite("grad_psum").key == "grad_psum@coll"``, disjoint from
 ``GemmSite`` keys by construction; ``site_kind`` classifies any key. The
-sites are data here: the policy's ``aux`` assignments that would map them
-to formats come with precision-plan loading (ROADMAP queue 1 item 5).
+sites are data here; their formats arrive as a policy's aux assignments
+(``dispatch.NumericsPolicy.aux``), which ``numerics/plan.py`` fills from a
+plan's state and collective sites.
 
 Format: ``QuantConfig(bits, block)`` groups values into blocks of ``block``
 elements; each block carries one power-of-two exponent sized to its max

@@ -253,8 +253,16 @@ def _numerics_args(spec: AccumulatorSpec, fmt) -> tuple:
 
 
 def _count(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel. A launch made while the
+    current stream is being captured into a CUDA graph runs nothing then: it
+    counts in ``wrapper.captured``, and ``wrapper.launches`` counts only the
+    launches that ran. A graph's replays go through no wrapper."""
+    capturing = torch.cuda.is_current_stream_capturing()
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        if capturing:
+            wrapper.captured += 1
+        else:
+            wrapper.launches += 1
 
 
 def _check_device(*tensors: torch.Tensor) -> str:
@@ -486,6 +494,7 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
 
 
 fdp_gemm.launches = 0
+fdp_gemm.captured = 0
 
 
 def fdp_gemm_looped(a: torch.Tensor, b: torch.Tensor, plan, *, spec: AccumulatorSpec,
@@ -528,6 +537,7 @@ def fdp_gemm_looped(a: torch.Tensor, b: torch.Tensor, plan, *, spec: Accumulator
 
 
 fdp_gemm_looped.launches = 0
+fdp_gemm_looped.captured = 0
 
 
 def fdp_ragged_gemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -590,6 +600,7 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 
 fdp_ragged_gemm.launches = 0
+fdp_ragged_gemm.captured = 0
 
 
 def fdp_ragged_dw_plain(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor,
@@ -653,3 +664,10 @@ def fdp_ragged_dw(x: torch.Tensor, g: torch.Tensor, group_sizes: torch.Tensor, *
 
 
 fdp_ragged_dw.launches = 0
+fdp_ragged_dw.captured = 0
+
+
+# every kernel wrapper by name, each counting its launches in ``.launches``
+# and the launches captured into a CUDA graph in ``.captured``
+KERNELS = {"fdp_gemm": fdp_gemm, "fdp_gemm_looped": fdp_gemm_looped,
+           "fdp_ragged_gemm": fdp_ragged_gemm, "fdp_ragged_dw": fdp_ragged_dw}

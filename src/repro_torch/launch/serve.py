@@ -1,5 +1,5 @@
-"""Batched serving entry point (counterpart of ``repro.launch.serve``, simple
-engine): prefill + greedy incremental decode with an f32 KV cache.
+"""Batched serving entry point (counterpart of ``repro.launch.serve``):
+prefill + greedy incremental decode with an f32 KV cache.
 
 On the card, under the FDP kernel policy:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
@@ -13,8 +13,14 @@ Under a precision plan (per-site numerics loaded from JSON):
         --precision-plan examples/plans/qwen3_0p6b.json
 
 ``--policy`` picks one of the named uniform policies instead; passing both
-is an error, so that it is never unclear which policy served. The
-``continuous`` and ``routed`` engines come with later slices.
+is an error, so that it is never unclear which policy served.
+
+``--engine continuous`` routes the same requests through the fixed-slot
+``launch.batching.ContinuousBatcher``: one request a prompt row, a cache of
+``prompt_len + 2 * gen + 2`` positions, the decode step captured in one CUDA
+graph under the policy before the first request arrives (on the CPU: eager
+steps). ``--engine routed`` (the workload-routed serving tier) comes with
+the serving tier's second half (ROADMAP queue 1, *Serving tier*).
 """
 
 from __future__ import annotations
@@ -82,8 +88,10 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
-    ap.add_argument("--engine", default="simple", choices=["simple"],
-                    help="whole-batch decode (continuous/routed: later slices)")
+    ap.add_argument("--engine", default="simple", choices=["simple", "continuous"],
+                    help="simple whole-batch decode, or the fixed-slot "
+                         "ContinuousBatcher on one CUDA graph captured under the "
+                         "policy (routed: the serving tier's second half)")
     ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
                     help=f"uniform numerics policy for every GEMM site (default "
                          f"{MXU_BF16.name})")
@@ -101,8 +109,20 @@ def main(argv=None):
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen)
     t0 = time.perf_counter()
-    with use_policy(policy):
-        toks = serve(cfg, params, prompts, args.gen, device=dev)
+    if args.engine == "continuous":
+        from repro_torch.launch.batching import ContinuousBatcher, Request
+        eng = ContinuousBatcher(cfg, params, n_slots=args.batch,
+                                max_len=args.prompt_len + 2 * args.gen + 2,
+                                warmup=policy)
+        reqs = [Request(uid=i, prompt=row.tolist(), max_new=args.gen)
+                for i, row in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        toks = torch.tensor([r.out for r in reqs])
+    else:
+        with use_policy(policy):
+            toks = serve(cfg, params, prompts, args.gen, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -15,7 +15,7 @@ plan assigns ``opt.m@state``/``opt.v@state``):
 
 ``--policy`` names a uniform policy instead; passing both is an error.
 ``--opt-precision`` wins over the plan's moment sites. ``--mesh``/
-``--profile`` come with multi-device support (ROADMAP queue 1 item 12).
+``--profile`` come with multi-device support (ROADMAP queue 1, *Multi-device*).
 Without ``--ckpt`` checkpoints go to a temporary directory that is removed
 at the end.
 """

@@ -6,23 +6,17 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-# Families the port runs, and the ROADMAP item (queue 1) that brings each of
-# the others.
+# Families the port runs; ROADMAP queue 1, *The other families*, brings the
+# rest.
 PORTED_FAMILIES = ("dense", "moe")
-_FAMILY_ITEMS = {
-    "ssm": "ROADMAP queue 1 item 13 (the other families)",
-    "hybrid": "ROADMAP queue 1 item 13 (the other families)",
-    "encdec": "ROADMAP queue 1 item 13 (the other families)",
-    "vlm": "ROADMAP queue 1 item 13 (the other families)",
-}
 
 
 def check_family(cfg: "ModelConfig") -> None:
     """Raise for a family this port does not run yet."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; "
-            f"{_FAMILY_ITEMS.get(cfg.family, 'see ROADMAP queue 1')} brings it")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; ROADMAP queue 1, "
+            f"*The other families*, brings it")
 
 
 @dataclasses.dataclass(frozen=True)

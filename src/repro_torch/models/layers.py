@@ -25,9 +25,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 def _normal(shape, scale, gen, dtype, device) -> nn.Parameter:
+    """A parameter drawn from ``gen``, a CPU generator, on the CPU, moved to
+    ``device`` and scaled there, so that one seed gives the same weights on
+    every device (a correctly rounded multiply gives the same bits on both).
+    The host holds one tensor at a time. ``gen=None`` leaves it
+    uninitialized (to be copied in)."""
     if gen is None:
         return _param(torch.empty(shape, dtype=dtype, device=device))
-    return _param(torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale)
+    return _param(torch.randn(shape, generator=gen, dtype=dtype).to(device).mul_(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +134,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     cache_len: int, site: str = "attn") -> torch.Tensor:
+                     cache_len, start: Optional[torch.Tensor] = None,
+                     site: str = "attn") -> torch.Tensor:
     """Single-step attention against a (possibly longer-than-valid) KV
     cache. q: (B, H, 1, hd); k, v: (B, Hkv, Smax, hd); cache_len: valid
-    prefix. (The int8 cache with scales, and the per-slot ``start`` of
-    continuous batching, come with later slices.)"""
+    prefix, an int or a 0-d integer tensor on the device, so that a
+    captured step reads it at replay. ``start`` (B,): continuous batching,
+    a slot reused mid-stream attends only to its own request's prefix
+    [start, cache_len). (The int8 cache with scales comes with a later
+    slice.)"""
     B, H, Sq, hd = q.shape
     Hkv, Smax = k.shape[1], k.shape[2]
     qv = q.reshape(B, Hkv, H // Hkv, Sq, hd)
     s = dispatch.grouped_qk(qv, k, site=site + "_qk").to(torch.float32) * hd ** -0.5
-    valid = torch.arange(Smax, device=q.device) < cache_len
-    s = torch.where(valid, s, -torch.inf)
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    valid = pos < cache_len
+    if start is not None:
+        valid = valid & (pos >= start[:, None])
+    s = torch.where(valid[:, None, None, None, :], s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     out = dispatch.grouped_av(p.to(v.dtype), v, site=site + "_av")
     return out.reshape(B, H, Sq, hd).to(q.dtype)
@@ -178,9 +190,11 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
                     kv_cache: Optional[dict] = None, site: str = "attn"):
     """Full attention sub-block. Returns (out, new_kv_cache | None).
 
-    kv_cache: {"k": (B,Hkv,Smax,hd), "v": ..., "len": int} for decode. The
-    new k/v are written into the cache tensors in place (the reference
-    returns updated copies); the returned cache shares them."""
+    kv_cache: {"k": (B,Hkv,Smax,hd), "v": ..., "len": int or 0-d integer
+    tensor on the device, "start": optional (B,)} for decode. The new k/v
+    are written into the cache tensors in place at positions [len, len + S)
+    (``index_copy_`` at a device index: the reference returns updated
+    copies); the returned cache shares them."""
     B, S, d = x.shape
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p.wq, site + "_q", p.bq)
@@ -204,9 +218,11 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
         # incremental decode: write k,v at position len, attend to prefix
         ln = kv_cache["len"]
         kfull, vfull = kv_cache["k"], kv_cache["v"]
-        kfull[:, :, ln:ln + S] = k.to(kfull.dtype)
-        vfull[:, :, ln:ln + S] = v.to(vfull.dtype)
-        out = decode_attention(q, kfull, vfull, cache_len=ln + S, site=site)
+        idx = ln + torch.arange(S, device=x.device)
+        kfull.index_copy_(2, idx, k.to(kfull.dtype))
+        vfull.index_copy_(2, idx, v.to(vfull.dtype))
+        out = decode_attention(q, kfull, vfull, cache_len=ln + S,
+                               start=kv_cache.get("start"), site=site)
         new_cache = {"k": kfull, "v": vfull, "len": ln + S}
     else:
         out = attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,

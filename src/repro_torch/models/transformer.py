@@ -64,10 +64,11 @@ class Transformer(nn.Module):
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
-    """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (CUDA unless the caller asks for another)."""
+    """Random parameters on ``device`` (CUDA unless the caller asks for
+    another), drawn in module order from a CPU ``torch.Generator`` seeded
+    with ``seed``: the same weights on every device."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     return Transformer(cfg, gen, getattr(torch, cfg.param_dtype), dev)
 
 
@@ -151,15 +152,25 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor):
     """One incremental decode step. tokens: (B, 1) int.
     Returns (logits (B, 1, V), new_cache); the cache tensors are updated in
-    place and shared with the returned cache."""
+    place and shared with the returned cache.
+
+    ``cache["len"]``, the write cursor, is an int or a 0-d integer tensor on
+    the device; with a tensor the step reads no host value, so it can be
+    captured in a CUDA graph (``launch.batching``). ``cache["start"]``
+    (B,), when present, is the continuous batcher's per-slot lower bound
+    of attention."""
     x = _embed(params, cfg, tokens)
     ln = cache["len"]
-    pos = torch.full((x.shape[0], 1), ln, dtype=torch.int64, device=x.device)
+    pos = ln + torch.zeros((x.shape[0], 1), dtype=torch.int64, device=x.device)
     kv_layers = cache["layers"]
+    start = cache.get("start")
     for i, blk in enumerate(params.layers):
-        kv = {"k": kv_layers["k"][i], "v": kv_layers["v"][i], "len": ln}
+        kv = {"k": kv_layers["k"][i], "v": kv_layers["v"][i], "len": ln, "start": start}
         x, _ = _decoder_block(x, blk, cfg, positions=pos, kv_cache=kv)
-    return _logits(params, cfg, x), {"len": ln + 1, "layers": kv_layers}
+    new_cache = {"len": ln + 1, "layers": kv_layers}
+    if start is not None:
+        new_cache["start"] = start
+    return _logits(params, cfg, x), new_cache
 
 
 @torch.inference_mode()

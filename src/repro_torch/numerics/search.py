@@ -120,9 +120,9 @@ def _measure_latency_us(cfg: GemmConfig, profile: SiteProfile, device=None) -> f
     b = torch.randn((k, n), generator=gen, device=dev)
     if cfg.mode == "pallas":
         # The reference autotunes the block plan here. The port has no
-        # autotuner (ROADMAP.md queue 1 item 4): the kernel takes its launch
-        # layout from the shapes, so plan_gemm only resolves and caches the
-        # heuristic plan.
+        # autotuner (ROADMAP.md queue 1, *Autotune and schedules*): the
+        # kernel takes its launch layout from the shapes, so plan_gemm only
+        # resolves and caches the heuristic plan.
         dispatch.plan_gemm(m, n, k, fmt=cfg.fmt, spec=cfg.acc)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     fn = lambda: _apply_cfg(cfg, a, b, profile.site)

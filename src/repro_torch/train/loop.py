@@ -12,8 +12,9 @@ updates the parameters in place and reads nothing back to the host: loss,
 accuracy and gradient norm stay device tensors.
 
 Waiting for later slices: ``sharded_value_and_grad`` and
-``make_mesh_train_step`` (multi-device, ROADMAP queue 1 item 12), and the
-``repro.obs`` step-time histogram, restart counter and spans (item 11);
+``make_mesh_train_step`` (ROADMAP queue 1, *Multi-device*), and the
+step-time histogram, restart counter and spans of ``repro_torch.obs``
+(ROADMAP queue 1, *Leftovers*);
 ``Trainer`` keeps its step times in ``monitor`` and its restarts in
 ``restarts`` until then.
 """

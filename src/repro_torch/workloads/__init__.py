@@ -18,8 +18,8 @@
 #                      training-loss curves vs the fp32-state reference
 #
 # The reference's ``mesh`` workload (bit-stability across device-mesh
-# factorizations) waits for the multi-device slice (ROADMAP.md queue 1 item
-# 5): it needs ``fdp_psum``.
+# factorizations) waits for the multi-device slice (ROADMAP.md queue 1,
+# *Multi-device*): it needs ``fdp_psum``.
 #
 # ``python -m repro_torch.workloads --plan examples/plans/<arch>.json`` runs
 # the zoo against a checked-in plan (on the card; ``--device cpu`` here).

@@ -23,7 +23,7 @@ strings (``search(validators=build_validators(("grad", "logits"), ctx))``).
 A ``WorkloadContext`` names the device its validators run on: CUDA unless
 the caller asks for the CPU, where every GEMM runs its plain version. The
 reference's ``dist`` (a ``layers.Distribution``) is left out until the port
-runs on several devices (ROADMAP.md queue 1 item 5).
+runs on several devices (ROADMAP.md queue 1, *Multi-device*).
 """
 
 from __future__ import annotations
@@ -221,7 +221,7 @@ def make_probe_batch(cfg, *, batch_size: int, seq: int, seed: int,
 # ---------------------------------------------------------------------------
 _REGISTRY: dict = {}
 # registry names of the reference's that wait for a later slice
-_NOT_PORTED = {"mesh": "ROADMAP.md queue 1 item 5 (multi-device; it needs "
+_NOT_PORTED = {"mesh": "ROADMAP.md queue 1, *Multi-device* (it needs "
                        "fdp_psum)"}
 
 

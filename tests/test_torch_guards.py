@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.train, repro_torch.numerics, repro_torch.numerics.plan, "
             "repro_torch.core.energy, repro_torch.core.metrics, repro_torch.core.generator, "
             "repro_torch.workloads, repro_torch.workloads.__main__, "
-            "repro_torch.data.conditioned\n"
+            "repro_torch.data.conditioned, repro_torch.obs, repro_torch.obs.export, "
+            "repro_torch.obs.__main__, repro_torch.launch.batching\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -76,6 +77,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         TLT.main(["--arch", "paper-mlp", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, None, None, None, "unused")
+
+
+def test_continuous_engine_refuses_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is legal here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.main(["--arch", "paper-mlp", "--reduced", "--engine", "continuous"])
 
 
 def test_workloads_refuse_to_fall_back_to_cpu():
@@ -102,7 +110,8 @@ def test_serve_refuses_params_on_another_device():
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch, item in (("mamba2-1.3b", "item 13"), ("whisper-large-v3", "item 13")):
+    for arch, item in (("mamba2-1.3b", "The other families"),
+                       ("whisper-large-v3", "The other families")):
         with pytest.raises(NotImplementedError, match=item):
             init(get_config(arch).reduced(), device="cpu")
 

@@ -132,7 +132,8 @@ def test_ragged_kernel_bit_equal_to_plain_on_card():
     assert {2, 4, 6, 12, 32} <= capacities
 
     cfg = get_config("dbrx-132b").reduced()
-    block = TM.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.Generator("cuda").manual_seed(0),
+    # weights are drawn on the host from a CPU generator, whatever the device
+    block = TM.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, torch.Generator().manual_seed(0),
                    device="cuda")
     x = torch.randn(2, 3, cfg.d_model, device="cuda")
     launches = tk.fdp_ragged_gemm.launches

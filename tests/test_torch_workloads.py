@@ -204,7 +204,7 @@ def test_registry_matches_the_reference():
     for name in TW.available_workloads():
         tcls, jcls = TW.get_workload(name), JW.get_workload(name)
         assert (tcls.phases, tcls.__name__) == (jcls.phases, jcls.__name__)
-    with pytest.raises(KeyError, match="queue 1 item 5"):
+    with pytest.raises(KeyError, match=r"queue 1, \*Multi-device\*"):
         TW.get_workload("mesh")
     with pytest.raises(KeyError, match="unknown workload"):
         TW.get_workload("nope")
