@@ -163,7 +163,36 @@ Phases (any failure exits non-zero before the final line):
      the same checks for both kernels; (c) the phase's spans exported with
      ``obs.save_chrome_trace`` and read back (one ``serving.batcher_run``
      an engine run), one registry snapshot printed;
- 19. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 19. the routed serving tier (``repro_torch.serving``) and the monitor:
+     (a) qwen3-0.6b at full width (phase 3's weights) behind a
+     ``PlanRouter`` of the MANIFEST's qwen3 plan and two plans built with
+     the router's API, ``fdp91_kernel`` (FDP91_KERNEL, with the evidence of
+     the derived ``/fdp91`` variant) and ``searched`` (phase 16's plan, its
+     scores and passes measured by phase 17); buckets 4x40 and 4x96, 2 live
+     batches, an engine cap of 3; 16 requests (phase 3's 4 prompts sent to
+     ``fdp91_kernel``, then chat, solve, ``searched`` with a stream, a
+     score, one request no plan satisfies and one no bucket fits; prompts
+     of 4-60 tokens from torch.Generator(1)), then phase 3's prompts again
+     to the evicted ``fdp91_kernel`` engine: the tokens sent to
+     ``fdp91_kernel`` equal phase 3's in both waves, every other generated
+     request equals a dedicated graph engine of its plan, the stream its
+     tokens, the score an eager forward's within a relative 1e-5; one
+     capture an engine, each engine's dense launches a step at capture equal
+     to its FDP dispatches (the chat engine: 0), the wrappers' counts equal
+     to two warm-up calls and one capture an engine, an evicted engine freed,
+     the closed sum of ``metrics()``; 8 replays of the recaptured engine
+     profiled; tok/s beside phase 18, capture seconds, the pool's stats and
+     memory; (b) four requests under ``searched`` through an eager pool
+     (``graph=False``) inside ``monitoring(searched)``: tokens equal to the
+     unmonitored graph engine's, graph engines refused while the hook is
+     installed, one dispatch at 2^70 at a ``pallas`` site flips exactly
+     that site to ``violated``; eager tok/s with and without the monitor;
+     (c) ``python -m repro_torch.serving --arch paper-mlp --requests 3
+     --max-new 3`` as a subprocess with ``--metrics-dump --inject-violation
+     attn_qk --trace-out`` (eager engines under the monitor; three
+     requests, not the default nine, since the derived variants' eager
+     ``simulate`` steps dominate the phase);
+ 20. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -188,6 +217,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -196,6 +226,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
@@ -214,6 +245,28 @@ TAILOR_BUDGET, TAILOR_MARGIN = 10.0, 2.0
 # output columns of each of the search's dense-kernel calls held against the
 # plain version (an output column depends only on the same column of b)
 CHECK_COLS = 64
+# Phase 19, the routed serving tier: buckets, live decode batches, the pool's
+# engine cap (below the trace's engines: evictions and a recapture), prompt
+# lengths (short fit 4x40 with 16 new tokens, long 4x96), the trace after
+# phase 3's four prompts (workload, method, prompt, extra, rejection
+# expected) and the score's tolerance against an eager forward
+ROUTED_BUCKETS, ROUTED_LIVE, ROUTED_ENGINES = "4x40,4x96", 2, 3
+ROUTED_LENGTHS = {"short": (4, 24), "long": (32, 61)}
+ROUTED_TRACE = (
+    ("chat", "generate", "short", {}, None),
+    ("chat", "generate", "long", {}, None),
+    ("solve", "generate", "long", {}, None),
+    ("searched", "generate", "short", {}, None),
+    ("chat", "generate", "short", {}, None),
+    ("searched", "stream", "short", {}, None),
+    ("solve", "generate", "long", {}, None),
+    ("chat", "generate", "long", {}, None),
+    ("searched", "generate", "long", {}, None),
+    ("solve", "score", "short", {}, None),
+    ("chat", "generate", "short", {"min_bits": 99.0}, "RoutingError"),
+    ("chat", "generate", "too_long", {}, "AdmissionError"),
+)
+ROUTED_SCORE_RTOL = 1e-5
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -802,6 +855,394 @@ def engine_phase(torch, dev, cfg, params, make_requests, *, n_slots: int, max_le
         fail(f"{label}: graph tokens != eager tokens")
     log(f"{label}: graph engine tokens == eager engine tokens for every request")
     return {"result": res, "tokens": tokens["graph"], "runs": n_runs}
+
+
+def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_policy, zoo_runs,
+                 graph_tok_s) -> dict:
+    """Phase 19: the routed serving tier at full width (the module docstring
+    lists its steps). ``phase3_tokens`` are phase 3's tokens under
+    FDP91_KERNEL, ``searched`` and ``searched_policy`` phase 16's plan,
+    ``zoo_runs`` phase 17's workload reports, ``graph_tok_s`` phase 18's
+    graph engine. Every kernel count is set to 0 just before the routed
+    trace and read just after it. Returns the phase's numbers."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.batching import CacheExhausted, ContinuousBatcher, Request
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import forward
+    from repro_torch.obs import monitoring, recorder
+    from repro_torch.serving import (FDP_CAP_BITS, BucketedEnginePool, PlanRouter,
+                                     RoutedFrontend, RoutedPlan, ScoreEngine, ServeRequest,
+                                     parse_buckets, routed_plan_from_entry)
+
+    t19 = time.perf_counter()
+    part_s = {}
+    tmpdir = tempfile.TemporaryDirectory(prefix="phase19_")
+    tmp = tmpdir.name
+    plans_dir = os.path.join(ROOT, "examples", "plans")
+
+    # -- (a) the routed tier -------------------------------------------------
+    t = time.perf_counter()
+    searched.save(os.path.join(tmp, "searched.json"))
+    validation = {w: {k: zoo_runs[f"{w} under searched plan"][k] for k in ("score", "passed")}
+                  for w in ("grad", "logits", "repro", "solve")}
+    searched_rp = routed_plan_from_entry("searched", {
+        "arch": cfg.name, "file": "searched.json", "validation": validation,
+        "energy_vs_baseline": searched.meta["energy_vs_baseline"],
+        "validated_bits": searched.meta.get("validated_bits")}, tmp)
+    # the evidence the reference's derived <name>/fdp91 variant records
+    kernel_rp = RoutedPlan(
+        name="fdp91_kernel", arch=cfg.name,
+        scores={w: FDP_CAP_BITS for w in ("solve", "repro", "logits")},
+        passed={w: True for w in ("solve", "repro", "logits")}, energy=1.0,
+        validated_bits=FDP_CAP_BITS, repro_certified=True, loader=lambda: FDP91_KERNEL)
+    zoo = PlanRouter.from_manifest(plans_dir, arch=cfg.name, derive=False).plans
+    router = PlanRouter([*zoo, kernel_rp, searched_rp])
+    routes = {wl: router.route(wl).name for wl in ("chat", "solve", "repro")}
+    log("(a) routable plans: " + "; ".join(
+        f"{p.name} (energy {p.energy:.4f}, validated {p.validated_bits}, scores "
+        + ", ".join(f"{w} {s:.2f}" for w, s in sorted(p.scores.items()))
+        + f", certified {p.repro_certified})" for p in router.plans))
+    log("    routes: " + ", ".join(f"{wl} -> {name}" for wl, name in routes.items()))
+
+    g = torch.Generator().manual_seed(1)
+    first = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=g).tolist()
+
+    def draw(kind):
+        n = int(torch.randint(*ROUTED_LENGTHS[kind], (1,), generator=g))
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    streamed: list = []
+    trace = [ServeRequest(uid=i, prompt=p, max_new=GEN, workload="fdp91_kernel")
+             for i, p in enumerate(first)]
+    for workload, method, kind, extra, _ in ROUTED_TRACE:
+        uid = len(trace)
+        if kind == "too_long":            # past the largest bucket's capacity
+            prompt = torch.randint(0, cfg.vocab_size, (96,), generator=g).tolist()
+        else:
+            prompt = draw(kind)
+        max_new = 0 if method == "score" else int(torch.randint(8, GEN + 1, (1,), generator=g))
+        trace.append(ServeRequest(uid=uid, prompt=prompt, max_new=max_new, workload=workload,
+                                  method=method, on_token=streamed.append
+                                  if method == "stream" else None, **extra))
+    if len(trace) != 16:
+        fail(f"the routed trace holds {len(trace)} requests, not 16")
+
+    # every engine the pool builds, in build order: its key, its numbers at
+    # capture and a weak reference (an evicted engine must be freed)
+    built: list = []
+    pool = BucketedEnginePool(cfg, params, ROUTED_BUCKETS, max_live=ROUTED_ENGINES)
+    pool_get = pool.get
+
+    def recording_get(plan, bucket, method):
+        before = pool.live().get((plan.name, bucket, method))
+        eng = pool_get(plan, bucket, method)
+        if eng is not before:
+            built.append(((plan.name, bucket.label, method), eng.capture_count,
+                          dict(eng.step_launches), dict(eng.step_dispatches),
+                          weakref.ref(eng)))
+        return eng
+    pool.get = recording_get
+    front = RoutedFrontend(pool, router, max_live_batches=ROUTED_LIVE)
+    recorder().clear()
+    gc.collect()                          # earlier phases' garbage out of the baseline
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    D.reset_sites_seen()
+    for w in K.KERNELS.values():
+        w.launches = w.captured = 0
+    comps = [front.submit(r) for r in trace]
+    t1 = time.perf_counter()
+    front.run()
+    torch.cuda.synchronize()
+    wave1_s = time.perf_counter() - t1
+    wave1_built = len(built)
+    wave1_capture_s = sum(e["dur_us"] for e in recorder().events()
+                          if e["name"] == "serving.aot_compile") / 1e6
+    gc.collect()
+    evicted = [b[0] for b in built if b[4]() is None]       # built, then freed
+    # a second wave: phase 3's prompts again to fdp91_kernel, whose engine
+    # the LRU cap has evicted by now, so it is captured again
+    wave2 = [front.submit(ServeRequest(uid=100 + i, prompt=p, max_new=GEN,
+                                       workload="fdp91_kernel"))
+             for i, p in enumerate(first)]
+    t1 = time.perf_counter()
+    front.run()
+    torch.cuda.synchronize()
+    wave2_s = time.perf_counter() - t1
+    launched = {n: w.launches for n, w in K.KERNELS.items() if w.launches}
+    captured = {n: w.captured for n, w in K.KERNELS.items() if w.captured}
+    mem_peak = torch.cuda.max_memory_allocated(dev)
+    mem_after = torch.cuda.memory_allocated(dev)
+    m = front.metrics()
+    pool_stats = pool.stats()
+    stats = front.stats()
+    capture_s = [(f"{e['args']['plan']} {e['args']['bucket']} {e['args']['method']}",
+                  e["dur_us"] / 1e6) for e in recorder().events()
+                 if e["name"] == "serving.aot_compile"]
+
+    # checks
+    by_uid = {c.request.uid: c for c in comps}
+    rejected = {uid: type(c.error).__name__ for uid, c in by_uid.items() if not c.ok}
+    want_rejected = {BATCH + i: spec[4] for i, spec in enumerate(ROUTED_TRACE) if spec[4]}
+    if rejected != want_rejected:
+        fail(f"rejections {rejected} != {want_rejected}")
+    if not all(c.ok for c in wave2):
+        fail("a second-wave request did not complete")
+    for reqs in (comps[:BATCH], wave2):
+        if [c.tokens for c in reqs] != phase3_tokens:
+            fail("the requests sent to fdp91_kernel != phase 3's tokens")
+    stream_uid = next(r.uid for r in trace if r.method == "stream")
+    if streamed != by_uid[stream_uid].tokens:
+        fail("the stream != its request's tokens")
+    if m["submitted"] != m["routed"] + m["parked"] + m["rejected"] or m["parked"] \
+            or m["completed"] != m["routed"] or m["submitted"] != len(trace) + len(wave2):
+        fail(f"metrics() breaks its closed sum: {m}")
+    keys = {b[0] for b in built}
+    wave2_key = ("fdp91_kernel", "4x40", "generate")
+    if pool_stats["evictions"] < 1 or wave2_key not in evicted or \
+            wave2_key not in [b[0] for b in built[wave1_built:]]:
+        fail(f"no eviction and recapture: {pool_stats}, freed in wave 1 {evicted}, built "
+             f"{[b[0] for b in built]}")
+    if pool_stats["compiles"] != len(built) or \
+            len(evicted) < len(built[:wave1_built]) - ROUTED_ENGINES:
+        fail(f"the pool built {len(built)} engines, counted {pool_stats['compiles']}; "
+             f"only {evicted} were freed in wave 1")
+    per_engine = {}
+    for key, captures, step_launches, step_dispatches, ref in built:
+        pol = router[key[0]].policy()
+        fdp = sum(n for s, n in step_dispatches.items() if pol.lookup(s).mode == "pallas")
+        launches_step = step_launches.get("fdp_gemm", 0)
+        resident = ref()
+        if captures != 1 or (resident is not None and resident.capture_count != 1) \
+                or launches_step != fdp or set(step_launches) - {"fdp_gemm"}:
+            fail(f"engine {key}: captures {captures}, dense launches a step at capture "
+                 f"{step_launches} != its {fdp} FDP dispatches")
+        per_engine[" ".join(key)] = {"launches_a_step": launches_step,
+                                     "dispatches_a_step": sum(step_dispatches.values())}
+        del resident
+    chat_key = next(k for k in keys if k[0] == routes["chat"])
+    if router[routes["chat"]].policy().default.mode == "native" and \
+            per_engine[" ".join(chat_key)]["launches_a_step"]:
+        fail(f"the chat engine {chat_key} captured dense launches")
+    want_captured = sum(b[2].get("fdp_gemm", 0) for b in built)
+    want_launches = 2 * want_captured
+    if launched.get("fdp_gemm", 0) != want_launches or \
+            captured.get("fdp_gemm", 0) != want_captured or set(launched) - {"fdp_gemm"}:
+        fail(f"the routed run's wrapper counts: launched {launched} (two warm-up calls a "
+             f"capture: {want_launches}), captured {captured} (one a capture: "
+             f"{want_captured})")
+    # the replays' kernel events, profiled over a window of the recaptured engine
+    k_eng = pool.live().get(("fdp91_kernel", parse_buckets("4x40")[0], "generate"))
+    k_eng.batcher.reset_cache()           # the frontend recycles on the next admission
+    replays = traced_steps(torch, k_eng.batcher, lambda: [
+        Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(first)], TRACED_STEPS)
+    if replays is not None and replays["kernels"]["fdp_gemm"] != \
+            TRACED_STEPS * k_eng.step_launches["fdp_gemm"]:
+        fail(f"{TRACED_STEPS} profiled replays of fdp91_kernel hold "
+             f"{replays['kernels']['fdp_gemm']} dense kernel events, not "
+             f"{k_eng.step_launches['fdp_gemm']} a step")
+    decode = sum(c.decode_tokens for c in comps if c.ok)
+    served = {c.request.uid: {"plan": c.plan, "bucket": c.bucket, "tokens": c.tokens,
+                              "score": c.score} for c in comps if c.ok}
+    # a rejected request's error holds its traceback, whose frames hold the
+    # pool: the completions go with the pool
+    del front, pool, pool_get, recording_get, k_eng, wave2, comps, by_uid
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_freed = torch.cuda.memory_allocated(dev)
+    alive = [b[0] for b in built if b[4]() is not None]
+    if alive:
+        fail(f"engines still alive after the pool was dropped: {alive}")
+    # every other generated request == a dedicated graph engine of its plan
+    # at its bucket, fed its group in order (recycled as the frontend does)
+    dedicated = {}
+    groups: dict = {}
+    for r in trace[BATCH:]:
+        c = served.get(r.uid)
+        if c is not None and r.method != "score":
+            groups.setdefault((c["plan"], c["bucket"]), []).append(r)
+    for (plan_name, label), reqs in groups.items():
+        bucket = parse_buckets(label)[0]
+        eng = ContinuousBatcher(cfg, params, n_slots=bucket.n_slots, max_len=bucket.max_len,
+                                warmup=router[plan_name].policy())
+        raws = [Request(uid=r.uid, prompt=list(r.prompt), max_new=r.max_new) for r in reqs]
+        for raw in raws:
+            eng.submit(raw)
+        while True:
+            try:
+                eng.run()
+                break
+            except CacheExhausted:             # recycle, as the frontend does
+                eng.reset_cache()
+        for raw in raws:
+            if served[raw.uid]["tokens"] != raw.out:
+                fail(f"routed request {raw.uid} ({plan_name}, {label}) != its dedicated "
+                     f"graph engine's tokens")
+        dedicated[f"{plan_name} {label}"] = [raw.uid for raw in raws]
+        del eng
+    # the score against an eager forward under its routed policy
+    score_req = next(r for r in trace if r.method == "score")
+    sc = served[score_req.uid]
+    bucket = parse_buckets(sc["bucket"])[0]
+    toks = torch.zeros((bucket.n_slots, bucket.max_len), dtype=torch.int64)
+    toks[0, :len(score_req.prompt)] = torch.tensor(score_req.prompt)
+    with torch.no_grad(), D.use_policy(router[sc["plan"]].policy()):
+        logits = forward(params, cfg, {"tokens": toks.to(dev)}, remat="none")
+    logp = torch.log_softmax(logits[0, :, :cfg.vocab_size].double(), -1)
+    n = len(score_req.prompt)
+    want = float(logp[torch.arange(n - 1), torch.tensor(score_req.prompt[1:])].sum())
+    del logits, logp
+    score = sc["score"]
+    if not math.isfinite(score) or abs(score - want) > ROUTED_SCORE_RTOL * abs(want):
+        fail(f"score {score} != eager forward's {want} within {ROUTED_SCORE_RTOL}")
+    part_s["a"] = time.perf_counter() - t
+    log(f"(a) {len(trace)} requests ({len(rejected)} rejected: {rejected}), then phase 3's 4 "
+        f"prompts again: all others completed; fdp91_kernel's tokens == phase 3's in both "
+        f"waves; {sum(len(v) for v in dedicated.values())} other generated requests == "
+        f"dedicated graph engines {dedicated}; the stream == its tokens; score "
+        f"{score:.6f} == eager forward's {want:.6f} (rel {ROUTED_SCORE_RTOL}); every "
+        f"engine captured once; metrics {m}")
+    log(f"    engines, a step's dense launches and dispatches at capture: {per_engine}; "
+        f"evicted and freed in wave 1: {evicted}")
+    log(f"    wrappers over both waves: launched {launched} (the captures' warm-up calls), "
+        f"captured {captured}; profiled replays: "
+        + ("not measured (no device events)" if replays is None else
+           f"{replays['kernels']['fdp_gemm']} dense kernel events in {TRACED_STEPS} replays, "
+           f"idle {100 * replays['idle_share']:.1f}%"))
+    log(f"    wave 1: {decode} decode tokens in {wave1_s:.3f} s = {decode / wave1_s:.2f} tok/s "
+        f"({decode / (wave1_s - wave1_capture_s):.2f} without its captures' "
+        f"{wave1_capture_s:.3f} s); wave 2 {wave2_s:.3f} s; phase 18's graph engine "
+        f"{graph_tok_s:.2f} tok/s (this run)")
+    log("    captures (s): " + ", ".join(f"{k} {v:.3f}" for k, v in capture_s))
+    log(f"    pool: {pool_stats}")
+    log(f"    classes: " + json.dumps({wl: {k: v for k, v in st.items() if k != 'tokens_per_s'}
+                                      for wl, st in stats["classes"].items()}, sort_keys=True))
+    log(f"    torch.cuda.memory_allocated: before {mem_before / 1e9:.3f} GB, peak "
+        f"{mem_peak / 1e9:.3f} GB, after the run {mem_after / 1e9:.3f} GB (engines resident), "
+        f"after the pool is dropped {mem_freed / 1e9:.3f} GB (every engine freed)")
+    routed = {"routes": routes, "rejected": rejected, "metrics": m, "pool": pool_stats,
+              "wave1_s": wave1_s, "wave2_s": wave2_s, "decode_tokens": decode,
+              "tok_s": decode / wave1_s,
+              "tok_s_without_captures": decode / (wave1_s - wave1_capture_s),
+              "capture_s": capture_s,
+              "graph_engine_tok_s": graph_tok_s, "engines": per_engine,
+              "freed_in_wave1": [" ".join(k) for k in evicted], "launched": launched,
+              "captured": captured, "replays_traced": replays, "score": score,
+              "score_eager": want, "memory_gb": {
+                  "before": mem_before / 1e9, "peak": mem_peak / 1e9,
+                  "after": mem_after / 1e9, "pool_dropped": mem_freed / 1e9}}
+
+    # -- (b) the monitor ------------------------------------------------------
+    t = time.perf_counter()
+
+    def four():
+        return [ServeRequest(uid=i, prompt=p, max_new=GEN, workload="searched")
+                for i, p in enumerate(first)]
+
+    ref = ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=40, warmup=searched_policy)
+    raws = [Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(first)]
+    for raw in raws:
+        ref.submit(raw)
+    ref.run()
+    graph_tokens = [raw.out for raw in raws]
+    del ref
+
+    def eager_serve():
+        pool = BucketedEnginePool(cfg, params, "4x40", max_live=1, graph=False)
+        front = RoutedFrontend(pool, router)
+        cs = [front.submit(r) for r in four()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        front.run()
+        torch.cuda.synchronize()
+        return [c.tokens for c in cs], time.perf_counter() - t0, sum(
+            c.decode_tokens for c in cs)
+
+    bare_tokens, bare_s, n_tok = eager_serve()
+    envelope = searched.meta["envelope"]["sites"]
+    site = next(s for s in sorted(envelope) if searched_policy.lookup(s).mode == "pallas")
+    with monitoring(searched) as mon:
+        for build in (lambda: ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=40,
+                                                warmup=searched_policy),
+                      lambda: ScoreEngine(cfg, params, parse_buckets("4x40")[0],
+                                          searched_policy)):
+            try:
+                build()
+            except RuntimeError as e:
+                if "trace hook" not in str(e):
+                    raise
+            else:
+                fail("a graph engine was built while the monitor was installed")
+        mon_tokens, mon_s, _ = eager_serve()
+        overflow = mon.registry.counter("repro_overflow_events_total", "",
+                                        ("site", "source"))
+        before = {s: i["status"] for s, i in mon.statuses().items()}
+        worst = mon.worst_status()
+        events0, counted0 = mon.overflow_events(), overflow.total()
+        D.gemm(torch.full((8, 16), 2.0 ** 70, device=dev),
+               torch.full((16, 8), 2.0 ** 70, device=dev), site=site, policy=searched_policy)
+        after = {s: i["status"] for s, i in mon.statuses().items()}
+        folds = mon.folds
+    if mon_tokens != graph_tokens or bare_tokens != graph_tokens:
+        fail("the monitored (or the bare eager) tokens != the unmonitored graph engine's")
+    changed = {s for s in after if after[s] != before.get(s)}
+    if changed != {site} or after[site] != "violated" or overflow.total() <= counted0:
+        fail(f"the injection at {site}: statuses changed at {changed} ({after.get(site)}), "
+             f"repro_overflow_events_total {counted0} -> {overflow.total()}")
+    part_s["b"] = time.perf_counter() - t
+    by_status = collections.Counter(before.values())
+    off = {s: st for s, st in sorted(before.items()) if st != "inside"}
+    log(f"(b) under monitoring(searched): tokens == the unmonitored graph engine's; a graph "
+        f"engine and a score engine refused to capture; before the injection worst "
+        f"{worst}, sites by status {dict(by_status)}, not inside: {off or 'none'}; "
+        f"overflow events {events0}; one dispatch at "
+        f"{site!r} with operands at 2^70 flipped exactly it to violated, "
+        f"repro_overflow_events_total {counted0:.0f} -> {overflow.total():.0f}; {folds} folds")
+    log(f"    eager engine, 4 requests, {n_tok} tokens: {n_tok / bare_s:.2f} tok/s bare, "
+        f"{n_tok / mon_s:.2f} tok/s monitored ({mon_s / bare_s:.3f}x the seconds)")
+    monitor = {"site": site, "worst_before": worst, "statuses_before": dict(by_status),
+               "not_inside_before": off,
+               "overflow_events_before": events0, "folds": folds,
+               "eager_tok_s": n_tok / bare_s, "monitored_tok_s": n_tok / mon_s}
+
+    # -- (c) the CLI ------------------------------------------------------------
+    t = time.perf_counter()
+    dump, trace_out = os.path.join(tmp, "dump.json"), os.path.join(tmp, "trace.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serving", "--arch", "paper-mlp",
+         "--requests", "3", "--max-new", "3", "--require-complete", "--plans", plans_dir,
+         "--metrics-dump", dump, "--inject-violation", "attn_qk", "--trace-out", trace_out],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.serving exited {proc.returncode}:\n{proc.stdout}\n"
+             f"{proc.stderr[-4000:]}")
+    with open(dump) as fh:
+        doc = json.load(fh)
+    with open(trace_out) as fh:
+        n_events = len(json.load(fh)["traceEvents"])
+    sm = doc["serving"]
+    if doc["kind"] != "repro.obs.ServingMetricsDump" or \
+            sm["submitted"] != sm["routed"] + sm["parked"] + sm["rejected"] or \
+            doc["monitor"]["sites"]["attn_qk"]["status"] != "violated" or not n_events:
+        fail(f"the CLI's dump or trace: kind {doc['kind']}, serving {sm}, attn_qk "
+             f"{doc['monitor']['sites']['attn_qk']['status']}, {n_events} trace events")
+    part_s["c"] = time.perf_counter() - t
+    log(f"(c) python -m repro_torch.serving --arch paper-mlp --requests 3 --max-new 3 "
+        f"--require-complete --metrics-dump --inject-violation attn_qk --trace-out, a "
+        f"subprocess (eager engines under the monitor: a chat request, a solve stream and "
+        f"a repro score, the last two on the derived simulate variants): rc 0, dump kind "
+        f"{doc['kind']}, serving {sm}, attn_qk violated, {n_events} trace events:")
+    for line in proc.stdout.splitlines():
+        log("    " + line)
+    tmpdir.cleanup()
+    phase_s = time.perf_counter() - t19
+    log(f"Phase 19 took {phase_s:.2f} s: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in part_s.items()))
+    return {"routed": routed, "monitor": monitor, "cli": {"serving": sm, "events": n_events},
+            "part_s": part_s, "phase_s": phase_s}
 
 
 def main() -> None:
@@ -2453,8 +2894,7 @@ def main() -> None:
         + ("not measured" if t3 is None else f"{100 * t3['idle_share']:.1f}%")
         + f"; graph engine {eng_q['result']['graph']['tok_s']:.2f} tok/s, eager engine "
         f"{eng_q['result']['eager']['tok_s']:.2f} tok/s")
-    del params
-    drop_weights(cfg)
+    del params                                            # the host copy stays for phase 19
     torch.cuda.empty_cache()
     params = weights(torch, mcfg, dev)                    # phase 5's weights
     eng_d = engine_phase(torch, dev, mcfg, params, dbrx_requests, n_slots=2, max_len=64,
@@ -2501,9 +2941,20 @@ def main() -> None:
     continuous = {"qwen3-0.6b": eng_q["result"], "dbrx-132b": eng_d["result"],
                   "trace_events": n_ev, "phase_s": phase18_s}
 
+    # -- 19. the routed serving tier and the monitor at full width ------------
+    phase("19")
+    params = weights(torch, cfg, dev)                     # phase 3's weights
+    routed = routed_phase(torch, dev, cfg, params, qwen["tokens"], searched, searched_policy,
+                          workloads["zoo"], eng_q["result"]["graph"]["tok_s"])
+    del params
+    drop_weights(cfg)
+    torch.cuda.empty_cache()
+    routed_launches = routed["routed"]["launched"].get("fdp_gemm", 0)
+    routed_replays = routed["routed"]["replays_traced"]
+
     phase("")
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-18 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-19 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -2514,7 +2965,7 @@ def main() -> None:
         "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
                      + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
                      + tailored_launches + workloads["launches"]["total"]
-                     + sum(engine_launches["fdp_gemm"].values())),
+                     + sum(engine_launches["fdp_gemm"].values()) + routed_launches),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -2524,8 +2975,13 @@ def main() -> None:
                                  tailored_launches,
                              "qwen3-0.6b workloads and validated search (phase 17)":
                                  workloads["launches"]["total"],
-                             **engine_launches["fdp_gemm"]},
-        "graph_replays_traced": replay_events["fdp_gemm"],
+                             **engine_launches["fdp_gemm"],
+                             "routed tier (phase 19)": routed_launches},
+        "graph_replays_traced": {
+            **replay_events["fdp_gemm"],
+            "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
+            else {"replays": routed_replays["steps"],
+                  "kernel_events": routed_replays["kernels"]["fdp_gemm"]}},
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,
@@ -2534,7 +2990,7 @@ def main() -> None:
         "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
-        "continuous": continuous,
+        "continuous": continuous, "routed_serving": routed,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

@@ -70,6 +70,39 @@ def _resolve_policy(policy) -> Optional[NumericsPolicy]:
         f"got {type(policy).__name__}")
 
 
+def capture(body: Callable[[], torch.Tensor], policy_ctx, device, *,
+            before: Optional[Callable[[], None]] = None):
+    """Capture ``body()`` in one CUDA graph under ``policy_ctx()``: two
+    eager calls on a side stream first (the kernels build and every
+    first-call cache fills, none of which may run inside a capture), then
+    ``before()`` (the batcher zeroes its KV and rewinds its cursor), then
+    the capture. Returns (graph, body's output tensor, kernel launches
+    recorded by the capture, FDP dispatches at capture by site key). A
+    dispatch trace hook installed raises: it would run at capture only,
+    never at replay."""
+    if dispatch._TRACE_HOOK is not None:
+        raise RuntimeError("a dispatch trace hook is installed: a captured step "
+                           "would call it at capture only, never at replay")
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with policy_ctx(), torch.cuda.stream(side):
+        for _ in range(2):
+            body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    if before is not None:
+        before()
+    captured = {n: w.captured for n, w in _k.KERNELS.items()}
+    calls = dispatch.site_calls()
+    graph = torch.cuda.CUDAGraph()
+    with policy_ctx(), torch.cuda.graph(graph):
+        out = body()
+    launches = {n: w.captured - captured[n] for n, w in _k.KERNELS.items()
+                if w.captured != captured[n]}
+    dispatches = {s: c - calls.get(s, 0) for s, c in dispatch.site_calls().items()
+                  if c != calls.get(s, 0)}
+    return graph, out, launches, dispatches
+
+
 class CacheExhausted(RuntimeError):
     """The engine's global KV write cursor can no longer fit any queued
     request. The cursor is shared across slots and never rewinds, so once
@@ -184,28 +217,8 @@ class ContinuousBatcher:
     def _capture(self) -> None:
         if self._graph is not None:
             raise RuntimeError("the decode step is already captured")
-        if dispatch._TRACE_HOOK is not None:
-            raise RuntimeError("a dispatch trace hook is installed: a captured step "
-                               "would call it at capture only, never at replay")
-        dev = self.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with self._policy_ctx(), torch.cuda.stream(side):
-            for _ in range(2):
-                self._step_body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self._zero_state()
-        captured = {n: w.captured for n, w in _k.KERNELS.items()}
-        calls = dispatch.site_calls()
-        graph = torch.cuda.CUDAGraph()
-        with self._policy_ctx(), torch.cuda.graph(graph):
-            self._next = self._step_body()
-        self.step_launches = {n: w.captured - captured[n] for n, w in _k.KERNELS.items()
-                              if w.captured != captured[n]}
-        self.step_dispatches = {s: c - calls.get(s, 0)
-                                for s, c in dispatch.site_calls().items()
-                                if c != calls.get(s, 0)}
-        self._graph = graph
+        self._graph, self._next, self.step_launches, self.step_dispatches = capture(
+            self._step_body, self._policy_ctx, self.device, before=self._zero_state)
         self.capture_count += 1
 
     def launches(self) -> dict:

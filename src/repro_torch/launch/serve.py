@@ -19,13 +19,28 @@ is an error, so that it is never unclear which policy served.
 ``launch.batching.ContinuousBatcher``: one request a prompt row, a cache of
 ``prompt_len + 2 * gen + 2`` positions, the decode step captured in one CUDA
 graph under the policy before the first request arrives (on the CPU: eager
-steps). ``--engine routed`` (the workload-routed serving tier) comes with
-the serving tier's second half (ROADMAP queue 1, *Serving tier*).
+steps). ``--engine routed`` goes through the serving tier
+(``repro_torch.serving``): the plan zoo's MANIFEST picks each request's
+numerics by workload class (``--workload``, or an explicit plan name), a
+bucketed engine pool (one CUDA graph an engine on the card) serves it, and
+per-class routing/latency stats print at the end.
+
+Observability: ``--monitor`` serves under a live calibration-envelope
+monitor (``obs.monitor``; the envelope of ``--precision-plan`` or, routed,
+of the architecture's zoo plan). A trace hook sees no CUDA-graph replay, so
+under ``--monitor`` the continuous and routed engines are built with
+``graph=False`` and run eager steps (the simple engine runs eager anyway).
+``--metrics-dump``, ``--metrics-port``/``--metrics-hold`` and
+``--trace-out`` write the registry, serve it over HTTP, and export the span
+timeline.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import time
 
 import torch
@@ -79,6 +94,19 @@ def serve(cfg, params, prompts, gen_len: int, device=None) -> torch.Tensor:
     return torch.cat(out, dim=1)
 
 
+def _zoo_envelope(plans_dir: str, arch: str):
+    """The calibration envelope of ``arch``'s first zoo plan in the MANIFEST
+    (None without one)."""
+    from repro_torch.numerics import load_plan
+    with open(os.path.join(plans_dir, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    for key, entry in sorted(manifest.get("plans", {}).items()):
+        if arch in (key, entry.get("arch")):
+            path = os.path.join(plans_dir, entry.get("file", f"{key}.json"))
+            return (load_plan(path).meta or {}).get("envelope")
+    return None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
@@ -88,49 +116,147 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
-    ap.add_argument("--engine", default="simple", choices=["simple", "continuous"],
-                    help="simple whole-batch decode, or the fixed-slot "
-                         "ContinuousBatcher on one CUDA graph captured under the "
-                         "policy (routed: the serving tier's second half)")
+    ap.add_argument("--engine", default="simple", choices=["simple", "continuous", "routed"],
+                    help="simple whole-batch decode, the fixed-slot ContinuousBatcher on "
+                         "one CUDA graph captured under the policy, or the "
+                         "workload-routed bucketed serving tier")
     ap.add_argument("--policy", default=None, choices=sorted(POLICIES),
                     help=f"uniform numerics policy for every GEMM site (default "
                          f"{MXU_BF16.name})")
     ap.add_argument("--precision-plan", default=None,
                     help="serve under a PrecisionPlan JSON (per-site numerics)")
+    ap.add_argument("--workload", default="chat",
+                    help="workload class (chat/solve/repro) or explicit plan name for "
+                         "--engine routed")
+    ap.add_argument("--plans", default="examples/plans",
+                    help="plan zoo directory for --engine routed")
+    ap.add_argument("--buckets", default=None,
+                    help="slots x len bucket table for --engine routed, e.g. 2x32,4x64 "
+                         "(default: one bucket sized to fit)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="serve under live calibration-envelope monitors (envelope from "
+                         "--precision-plan or the zoo plan); engines run eager steps")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="write the unified metrics registry (+ monitor snapshot) as "
+                         "JSON when serving finishes")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="expose /metrics (Prometheus text) and /metrics.json on this "
+                         "local port while serving")
+    ap.add_argument("--metrics-hold", type=float, default=0.0,
+                    help="keep the --metrics-port server up this many seconds after "
+                         "serving completes")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export the span timeline as Chrome-trace JSON")
     args = ap.parse_args(argv)
+    if args.engine == "routed" and (args.precision_plan or args.policy):
+        raise SystemExit("--engine routed picks plans from the zoo MANIFEST; use "
+                         "--workload, not --precision-plan or --policy")
     policy = policy_from_args(args)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    base_arch = cfg.name
     if args.reduced:
         cfg = cfg.reduced()
+    if args.engine != "simple" and cfg.family not in ("dense", "moe", "vlm"):
+        raise SystemExit(f"--engine {args.engine} supports KV-cache families "
+                         f"(dense/moe/vlm); {args.arch} is family={cfg.family!r} — use "
+                         f"the default --engine simple")
     params = init(cfg, seed=0, device=dev)
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen)
+    srv = None
+    if args.metrics_port is not None:
+        from repro_torch.obs import start_metrics_server
+        srv = start_metrics_server(args.metrics_port)
+        print(f"[serve] metrics at http://127.0.0.1:{srv.server_port}/metrics "
+              f"(+ /metrics.json)")
+
+    monitored = bool(args.monitor or args.metrics_dump)
+    mon_ctx = contextlib.nullcontext(None)
+    if monitored:
+        from repro_torch.obs import monitoring
+        envelope = None
+        if args.precision_plan:
+            from repro_torch.numerics import load_plan
+            envelope = (load_plan(args.precision_plan).meta or {}).get("envelope")
+        elif args.engine == "routed":
+            envelope = _zoo_envelope(args.plans, base_arch)
+        mon_ctx = monitoring(envelope=envelope)
+        if args.engine != "simple":
+            print(f"[serve] --monitor: the {args.engine} engine is built with graph=False "
+                  f"(a trace hook sees no CUDA-graph replay)")
+    graph = False if monitored else None
+
     t0 = time.perf_counter()
-    if args.engine == "continuous":
+    stack = contextlib.ExitStack()
+    mon = stack.enter_context(mon_ctx)
+    if args.engine == "routed":
+        from repro_torch.serving import (BucketedEnginePool, PlanRouter, RoutedFrontend,
+                                         ServeRequest)
+        router = PlanRouter.from_manifest(args.plans, arch=base_arch)
+        buckets = args.buckets or f"{args.batch}x{args.prompt_len + args.gen + 2}"
+        pool = BucketedEnginePool(cfg, params, buckets, graph=graph)
+        front = RoutedFrontend(pool, router)
+        comps = [front.submit(ServeRequest(uid=i, prompt=row.tolist(), max_new=args.gen,
+                                           workload=args.workload))
+                 for i, row in enumerate(prompts)]
+        front.run()
+        toks = torch.tensor([c.result() for c in comps])
+        st = front.stats()
+        for wl, cs in st["classes"].items():
+            plans = ", ".join(sorted(cs["plans"]))
+            print(f"[serve:routed] {wl}: {cs['completed']}/{cs['submitted']} ok via "
+                  f"{plans}  mean_steps={cs['mean_steps']:.1f} "
+                  f"tok/s={cs['tokens_per_s']:.1f}")
+        print(f"[serve:routed] pool: {st['pool']['compiles']} compiles, "
+              f"buckets={st['pool']['bucket_hits']}")
+        policy_name = "routed"
+    elif args.engine == "continuous":
         from repro_torch.launch.batching import ContinuousBatcher, Request
         eng = ContinuousBatcher(cfg, params, n_slots=args.batch,
                                 max_len=args.prompt_len + 2 * args.gen + 2,
-                                warmup=policy)
+                                warmup=policy, graph=graph)
         reqs = [Request(uid=i, prompt=row.tolist(), max_new=args.gen)
                 for i, row in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         eng.run()
         toks = torch.tensor([r.out for r in reqs])
+        policy_name = policy.name
     else:
         with use_policy(policy):
             toks = serve(cfg, params, prompts, args.gen, device=dev)
+        policy_name = policy.name
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    stack.close()                      # uninstall the monitor, fold its queue
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch}: engine={args.engine} policy={policy.name} "
+    print(f"[serve] {args.arch}: engine={args.engine} policy={policy_name} "
           f"device={dev} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
     print("sample:", toks[0].tolist())
-
+    if mon is not None:
+        print(f"[serve] monitor: worst={mon.worst_status()} over "
+              f"{len(mon.statuses())} sites, overflow_events={mon.overflow_events()}")
+    if args.metrics_dump:
+        from repro_torch.obs import default_registry
+        dump = {"kind": "repro.obs.ServingMetricsDump", "version": 1,
+                "arch": args.arch, "engine": args.engine,
+                "metrics": default_registry().snapshot(),
+                "monitor": mon.snapshot() if mon is not None else None}
+        with open(args.metrics_dump, "w") as f:
+            json.dump(dump, f, indent=1, sort_keys=True, default=str)
+        print(f"[serve] metrics dump -> {args.metrics_dump}")
+    if args.trace_out:
+        from repro_torch.obs import save_chrome_trace
+        n_ev = save_chrome_trace(args.trace_out)
+        print(f"[serve] chrome trace ({n_ev} events) -> {args.trace_out}")
+    if srv is not None:
+        if args.metrics_hold > 0:
+            time.sleep(args.metrics_hold)
+        srv.shutdown()
 
 if __name__ == "__main__":
     main()

@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.energy, repro_torch.core.metrics, repro_torch.core.generator, "
             "repro_torch.workloads, repro_torch.workloads.__main__, "
             "repro_torch.data.conditioned, repro_torch.obs, repro_torch.obs.export, "
-            "repro_torch.obs.__main__, repro_torch.launch.batching\n"
+            "repro_torch.obs.__main__, repro_torch.launch.batching, repro_torch.obs.monitor, "
+            "repro_torch.serving, repro_torch.serving.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -84,6 +85,26 @@ def test_continuous_engine_refuses_to_fall_back_to_cpu():
         pytest.skip("a card is present: the CUDA default is legal here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TS.main(["--arch", "paper-mlp", "--reduced", "--engine", "continuous"])
+
+
+def test_routed_serving_refuses_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is legal here")
+    from repro_torch.serving.__main__ import main as serving_main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving_main(["--arch", "paper-mlp", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.main(["--arch", "paper-mlp", "--reduced", "--engine", "routed"])
+
+
+def test_graph_engines_refuse_cpu_parameters():
+    from repro_torch.serving import Bucket, BucketedEnginePool, ScoreEngine
+    cfg = get_config("paper-mlp").reduced()
+    params = init(cfg, device="cpu")
+    with pytest.raises(ValueError, match="graph=True needs the parameters on a CUDA"):
+        BucketedEnginePool(cfg, params, "2x16", graph=True)
+    with pytest.raises(ValueError, match="graph=True needs the parameters on a CUDA"):
+        ScoreEngine(cfg, params, Bucket(max_len=16, n_slots=2), None, graph=True)
 
 
 def test_workloads_refuse_to_fall_back_to_cpu():
