@@ -119,8 +119,9 @@ Phases (any failure exits non-zero before the final line):
      widths 24, 40, 64, budget 10 bits) in ``pallas`` mode, with the dense
      kernel's launches held to the pallas dispatches, and in ``simulate``
      mode: the plans equal site for site and every frontier equal; searched
-     again with the card's latency column (each pick printed beside the
-     91-bit candidate's latency at the same shape), saved with
+     again with the card's latency column (each pallas candidate's plan
+     autotuned first, its launches not counted as dispatches; each pick
+     printed beside the 91-bit candidate's latency at the same shape), saved with
      ``PrecisionPlan.save`` and loaded back; the default grid's picks; TF32
      asserted off before each search; the searched plan served at full
      width as in phase 3 (launches == FDP dispatches, tok/s beside phase
@@ -191,8 +192,25 @@ Phases (any failure exits non-zero before the final line):
      --max-new 3`` as a subprocess with ``--metrics-dump --inject-violation
      attn_qk --trace-out`` (eager engines under the monitor; three
      requests, not the default nine, since the derived variants' eager
-     ``simulate`` steps dominate the phase);
- 20. one JSON line of per-kernel numbers, then the ``ok`` line.
+     ``simulate`` steps dominate the phase), which prints the number of
+     schedules it preloaded from the checked-in cuda zoo;
+ 20. autotune and the schedule zoo: (a) the plan cache cleared, the plan
+     keys of phase 3's serve and phase 18's engine gathered
+     (``core.schedules.serve_keys``) and each autotuned, with the mlp_in
+     prefill and the dbrx-132b router shapes (every candidate launch
+     torch.equal to the cost model's pick), each key's pick and winner
+     printed with their times, the winner's cost rank and the seconds; (b)
+     the zoo saved, the cache cleared, the zoo preloaded: every key a hit,
+     no miss, ``persisted_loads`` the number of keys; the checked-in
+     ``src/repro_torch/schedules/cuda.json`` loads with its fingerprint
+     checked and covers the keys (how many of its winners this run agrees
+     with, printed, not gated); (c) with the checked-in zoo preloaded,
+     phase 3's serve and phase 18's graph engine give their tokens with no
+     miss and every dense launch on a persisted launch (``dense_plan``
+     watched), tok/s beside phases 3 and 18; (d) a ``simulate`` dbrx-132b
+     graph engine at reduced widths captures and gives its eager twin's
+     tokens;
+ 21. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -395,6 +413,30 @@ def pallas_dispatches(D):
         yield n
     finally:
         D._execute = execute
+
+
+@contextlib.contextmanager
+def autotune_launches(D, K):
+    """Count the plans the autotuner measures (``dispatch._measure_plan``)
+    and the dense-kernel launches it makes timing their candidates, which
+    are not dispatches. Yields the counts."""
+    n = {"keys": 0, "launches": 0, "seconds": 0.0}
+    measure = D._measure_plan
+
+    def counting(*args, **kw):
+        before, t = K.fdp_gemm.launches, time.perf_counter()
+        try:
+            return measure(*args, **kw)
+        finally:
+            n["keys"] += 1
+            n["launches"] += K.fdp_gemm.launches - before
+            n["seconds"] += time.perf_counter() - t
+
+    D._measure_plan = counting
+    try:
+        yield n
+    finally:
+        D._measure_plan = measure
 
 
 # CPU numbers of the JAX package's `python -m repro.workloads --plan
@@ -1219,6 +1261,12 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
     if proc.returncode != 0:
         fail(f"python -m repro_torch.serving exited {proc.returncode}:\n{proc.stdout}\n"
              f"{proc.stderr[-4000:]}")
+    # the CLI preloads the checked-in cuda zoo and prints how many schedules
+    from repro_torch.core import schedules as S
+    n_zoo = len(S.ScheduleZoo.load(S.zoo_path(backend="cuda")).entries)
+    if f"  plans: {n_zoo} preloaded from zoo;" not in proc.stdout:
+        fail(f"python -m repro_torch.serving did not print {n_zoo} schedules preloaded:\n"
+             f"{proc.stdout}")
     with open(dump) as fh:
         doc = json.load(fh)
     with open(trace_out) as fh:
@@ -1234,14 +1282,203 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
         f"--require-complete --metrics-dump --inject-violation attn_qk --trace-out, a "
         f"subprocess (eager engines under the monitor: a chat request, a solve stream and "
         f"a repro score, the last two on the derived simulate variants): rc 0, dump kind "
-        f"{doc['kind']}, serving {sm}, attn_qk violated, {n_events} trace events:")
+        f"{doc['kind']}, serving {sm}, attn_qk violated, {n_events} trace events, "
+        f"{n_zoo} schedules preloaded from the cuda zoo:")
     for line in proc.stdout.splitlines():
         log("    " + line)
     tmpdir.cleanup()
     phase_s = time.perf_counter() - t19
     log(f"Phase 19 took {phase_s:.2f} s: " + ", ".join(
         f"({k}) {v:.2f} s" for k, v in part_s.items()))
-    return {"routed": routed, "monitor": monitor, "cli": {"serving": sm, "events": n_events},
+    return {"routed": routed, "monitor": monitor,
+            "cli": {"serving": sm, "events": n_events, "schedules_preloaded": n_zoo},
+            "part_s": part_s, "phase_s": phase_s}
+
+
+def schedules_phase(torch, dev, cfg, params, phase3_tokens, phase18_tokens, make_requests,
+                    phase3_tok_s, phase18_tok_s) -> dict:
+    """Phase 20: the autotuner and the schedule zoo at full width (the
+    module docstring lists its steps). ``phase3_tokens``/``phase18_tokens``
+    are phase 3's simple serve's and phase 18's graph engine's tokens under
+    FDP91_KERNEL, ``make_requests`` phase 18's requests. Every kernel count
+    is set to 0 just before each preloaded run and read just after it.
+    Returns the phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch as D
+    from repro_torch.core import schedules as S
+    from repro_torch.core.accumulator import AccumulatorSpec
+    from repro_torch.core.formats import FP32
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    from repro_torch.launch.serve import FDP91_KERNEL, serve
+    from repro_torch.models import init
+
+    t20 = time.perf_counter()
+    part_s = {}
+    P91 = AccumulatorSpec.paper_91bit()
+    backend = dev.type                                     # "cuda" on the card
+
+    # (a) the keys of phase 3's serve and phase 18's engine, each autotuned
+    t = time.perf_counter()
+    keys = S.serve_keys(cfg, params, dev)
+    gather_s = time.perf_counter() - t
+    # beside them, two shapes of the kernel table (PERF.md): the mlp_in
+    # prefill and dbrx-132b's 2-D router, not served here
+    extra = [(1, 64, 3072, 1024, FP32.name, P91, backend),
+             (1, 4, 16, 6144, FP32.name, P91, backend)]
+    log(f"(a) {len(keys)} plan keys from a {cfg.name} serve ({BATCH} x {PROMPT}, {GEN} "
+        f"generated) and a continuous engine ({BATCH} slots, max_len 160) under "
+        f"{FDP91_KERNEL.name}, gathered in {gather_s:.2f} s; each autotuned over "
+        f"{D.AUTOTUNE_TOP} launches ranked by the cost model (every candidate torch.equal "
+        f"to the model pick), and {len(extra)} more shapes:")
+    with autotune_launches(D, K) as tuned:
+        try:
+            rows = S.autotune_keys(keys + extra, log=log)
+        except RuntimeError as e:
+            fail(f"(a) autotuning: {e}")
+    part_s["a"] = time.perf_counter() - t
+    measured = {row["key"]: row for row in rows}
+    faster = [r for r in rows if r["rank"] != 0]
+    log(f"(a) {len(rows)} keys autotuned in {tuned['seconds']:.2f} s ({tuned['launches']} "
+        f"launches); {len(faster)} winners are not the model pick, their gain "
+        + (", ".join(f"{1 - r['win_ms'] / r['pick_ms']:.2%} at {r['key']}" for r in faster)
+           or "none"))
+
+    # (b) save, clear, preload: a warm cache takes no miss; the checked-in zoo
+    t = time.perf_counter()
+    zoo = S.ScheduleZoo.from_cache(backend, meta=S.card_meta(dev))
+    with tempfile.TemporaryDirectory(prefix="phase20_") as tmp:
+        zoo.save(S.zoo_path(tmp, backend))
+        D.clear_plan_cache()
+        n = S.preload_schedules(tmp, backend)
+    st0 = D.plan_cache_stats()
+    again = {key: D.plan_gemm(*key[1:4], fmt=FP32, spec=key[5], batch=key[0], backend=backend)
+             for key in keys + extra}
+    st = D.plan_cache_stats()
+    if n != len(zoo.entries) or n != len(keys) + len(extra) or st0.persisted_loads != n \
+            or st.misses != 0 or st.hits != n or any(
+                p.source != "persisted" or p.launch != zoo.entries[k[:6]].launch
+                for k, p in again.items()):
+        fail(f"(b) preloaded {n} of {len(zoo.entries)} schedules, stats {st}")
+    checked_in = S.ScheduleZoo.load(S.zoo_path(backend=backend))     # fingerprint checked
+    missing = [k[:6] for k in keys if k[:6] not in checked_in.entries]
+    if missing or checked_in.backend != backend:
+        fail(f"(b) the checked-in cuda zoo lacks {missing} (backend {checked_in.backend})")
+    agree = sum(checked_in.entries[k[:6]].launch == zoo.entries[k[:6]].launch for k in keys)
+    part_s["b"] = time.perf_counter() - t
+    log(f"(b) saved {len(zoo.entries)} schedules, cleared, preloaded {n}: lookups of every "
+        f"key {st.hits} hits, {st.misses} misses, persisted_loads {st0.persisted_loads}. The "
+        f"checked-in zoo ({S.zoo_path(backend=backend)}, measured on {checked_in.meta.get('device')}"
+        f" at {checked_in.meta.get('power_limit')}) loads with its fingerprint checked and "
+        f"covers all {len(keys)} keys; this run's winner is its launch at {agree} of "
+        f"{len(keys)} (not gated: timer noise)")
+
+    # (c) phase 3's serve and phase 18's engine on the checked-in zoo
+    t = time.perf_counter()
+    D.clear_plan_cache()
+    n_loaded = S.preload_schedules(backend=backend)
+    launched = {"named": 0, "none": 0}
+    dense_plan = K.dense_plan
+
+    def recording(a, b, num_limbs, sms, launch=None):
+        launched["none" if launch is None else "named"] += 1
+        return dense_plan(a, b, num_limbs, sms, launch)
+
+    K.dense_plan = recording
+    try:
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                generator=torch.Generator().manual_seed(1))
+        K.fdp_gemm.launches = 0
+        D.reset_sites_seen()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with D.use_policy(FDP91_KERNEL):
+            toks = serve(cfg, params, prompts, GEN, device=dev).tolist()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - ts
+        serve_launches, serve_calls = K.fdp_gemm.launches, sum(D.site_calls().values())
+        st_serve = D.plan_cache_stats()
+        K.fdp_gemm.launches = K.fdp_gemm.captured = 0
+        eng = ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=160, warmup=FDP91_KERNEL)
+        engine_runs = []
+        for _ in range(2):
+            reqs = make_requests()
+            for r in reqs:
+                eng.submit(r)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            engine_runs.append((time.perf_counter() - ts, sum(len(r.out) for r in reqs)))
+            eng_tokens = [r.out for r in reqs]
+            eng.reset_cache()
+        eng_counts = (K.fdp_gemm.launches, K.fdp_gemm.captured, dict(eng.step_launches))
+    finally:
+        K.dense_plan = dense_plan
+    st = D.plan_cache_stats()
+    if toks != phase3_tokens:
+        fail("(c) the serve on the preloaded zoo != phase 3's tokens")
+    if eng_tokens != phase18_tokens or eng_tokens[:BATCH] != phase3_tokens:
+        fail("(c) the graph engine on the preloaded zoo != phase 18's (and phase 3's) tokens")
+    if n_loaded != len(checked_in.entries) or st.misses != 0 or launched["none"] != 0 \
+            or launched["named"] != serve_launches + eng_counts[0] + eng_counts[1] \
+            or serve_launches != serve_calls or st_serve.hits != serve_calls:
+        fail(f"(c) preloaded {n_loaded}, stats {st} (after the serve {st_serve}), launches "
+             f"{launched}, serve launches {serve_launches} of {serve_calls} dispatches, "
+             f"engine {eng_counts}")
+    del eng
+    serve_tok_s = BATCH * GEN / serve_s
+    engine_tok_s = [n_tok / s for s, n_tok in engine_runs]
+    part_s["c"] = time.perf_counter() - t
+    log(f"(c) the checked-in zoo preloaded ({n_loaded} schedules): phase 3's serve gives "
+        f"phase 3's tokens, {serve_launches} launches == FDP dispatches, {st_serve.hits} plan "
+        f"hits; phase 18's graph engine gives phase 18's tokens, {eng_counts[0]} warm-up "
+        f"launches and {eng_counts[1]} captured ({eng_counts[2]} a step); {st.misses} "
+        f"misses over both, all {launched['named']} dense launches on a persisted launch, "
+        f"none on the cost model's. Serve {serve_tok_s:.2f} tok/s (one run; phase 3's "
+        f"median {phase3_tok_s:.2f}); graph engine "
+        f"{', '.join(f'{x:.2f}' for x in engine_tok_s)} tok/s (two runs; phase 18's median "
+        f"{phase18_tok_s:.2f})")
+
+    # (d) a simulate MoE engine captures and equals its eager twin
+    t = time.perf_counter()
+    mcfg = get_config("dbrx-132b").reduced(n_kv_heads=2)
+    mparams = init(mcfg, seed=0, device=dev)
+
+    def moe_requests():
+        g = torch.Generator().manual_seed(1)
+        return [Request(uid=i, prompt=torch.randint(0, mcfg.vocab_size, (n,),
+                                                    generator=g).tolist(), max_new=m)
+                for i, (n, m) in enumerate(((4, 3), (2, 5), (5, 2), (3, 4), (1, 3)))]
+
+    outs = {}
+    for graph in (False, None):
+        eng = ContinuousBatcher(mcfg, mparams, n_slots=2, max_len=40, warmup=D.FDP91,
+                                graph=graph)
+        reqs = moe_requests()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs[graph] = ([r.out for r in reqs], eng.graphed, eng.capture_count, eng.replays)
+    if outs[None][0] != outs[False][0] or not outs[None][1] or outs[None][2] != 1 \
+            or outs[None][3] <= 0:
+        fail(f"(d) the simulate dbrx-132b graph engine: {outs}")
+    del eng, mparams
+    part_s["d"] = time.perf_counter() - t
+    log(f"(d) dbrx-132b reduced (n_kv_heads 2) under {D.FDP91.name} (simulate): the graph "
+        f"engine captured once, {outs[None][3]} replays, tokens == its eager twin's "
+        f"({sum(len(o) for o in outs[None][0])} tokens)")
+    phase_s = time.perf_counter() - t20
+    log(f"Phase 20 took {phase_s:.2f} s: " + ", ".join(
+        f"({k}) {v:.2f} s" for k, v in part_s.items()))
+    ms = lambda lay: dataclasses.asdict(lay)
+    return {"keys": [{"key": list(r["key"]), "pick_ms": r["pick_ms"], "pick": ms(r["pick"]),
+                      "win_ms": r["win_ms"], "win": ms(r["win"]), "rank": r["rank"],
+                      "seconds": r["seconds"]} for r in rows],
+            "autotune_launches": tuned["launches"], "checked_in_agree": agree,
+            "checked_in_meta": checked_in.meta, "preloaded": n_loaded,
+            "serve_tok_s": serve_tok_s, "engine_tok_s": engine_tok_s,
+            "dense_launches_on_persisted": launched["named"],
             "part_s": part_s, "phase_s": phase_s}
 
 
@@ -2592,6 +2829,8 @@ def main() -> None:
     vs_plain = {"calls": 0, "outputs": 0, "max_abs_diff": 0.0}
     validating = [False]
 
+    search_autotune = []
+
     def card_search(label, **kw):
         last = [None]
 
@@ -2623,19 +2862,24 @@ def main() -> None:
         remove = D.add_trace_hook(count)
         t = time.perf_counter()
         try:
-            with pallas_dispatches(D) as n_pallas:
+            with pallas_dispatches(D) as n_pallas, autotune_launches(D, K) as tuned:
                 res = search(loaded, TAILOR_BUDGET, name=f"qwen3-0.6b {label}", device=dev,
                              **kw)
                 torch.cuda.synchronize()
         finally:
             remove()
         dt = time.perf_counter() - t
-        if K.fdp_gemm.launches != n_pallas[0]:
-            fail(f"search {label}: dense kernel launches {K.fdp_gemm.launches} != pallas "
-                 f"dispatches {n_pallas[0]}")
+        dispatched = K.fdp_gemm.launches - tuned["launches"]
+        if dispatched != n_pallas[0]:
+            fail(f"search {label}: dense kernel launches {K.fdp_gemm.launches} less "
+                 f"{tuned['launches']} of the autotuner != pallas dispatches {n_pallas[0]}")
+        search_autotune.append(tuned)
         log(f"search {label}: {len(res.decisions)} sites in {dt:.3f} s (with the checks), "
-            f"dense kernel launches {K.fdp_gemm.launches} == pallas dispatches {n_pallas[0]}")
-        return res, K.fdp_gemm.launches, dt
+            f"dense kernel launches {dispatched} == pallas dispatches {n_pallas[0]}"
+            + (f"; the latency column autotuned {tuned['keys']} plans in "
+               f"{tuned['seconds']:.3f} s ({tuned['launches']} launches)" if tuned["keys"]
+               else ""))
+        return res, dispatched, dt
 
     res_k, launches_k, search_k_s = card_search("pallas", fdp_mode="pallas", **FDP_GRID)
     if launches_k <= 0:
@@ -2708,9 +2952,12 @@ def main() -> None:
     log(f"searched plan (budget {TAILOR_BUDGET} bits, latency measured on the card), "
         f"saved and loaded back; modeled energy {res_l.plan.meta['modeled_energy_j']:.4e} J "
         f"= {100 * res_l.plan.meta['energy_vs_baseline']:.1f}% of uniform 91 bits:")
+    with autotune_launches(D, K) as tuned91:
+        for site, d in sorted(res_l.decisions.items()):
+            lat91[site] = search_mod._measure_latency_us(p91, d.profile, dev)
+    search_autotune.append(tuned91)
     for site, d in sorted(res_l.decisions.items()):
         pk = d.pick
-        lat91[site] = search_mod._measure_latency_us(p91, d.profile, dev)
         shape = max(d.profile.shapes.items(), key=lambda kv: kv[1])[0]
         log(f"  {site:16s} {pk.candidate.tag:32s} {pk.error_bits:5.1f} bits "
             f"{pk.energy_j:.3e} J {pk.latency_us:9.1f} us; 91 bits {lat91[site]:9.1f} us "
@@ -2834,6 +3081,8 @@ def main() -> None:
                      "pallas_latency": search_l_s, "default_grid": search_d_s},
         "search_launches": {"pallas": launches_k, "pallas_latency": launches_l,
                             "default_grid": launches_d},
+        "autotune": {k: sum(t[k] for t in search_autotune)
+                     for k in ("keys", "launches", "seconds")},
         "validated_bits": validated, "upgraded": upgraded,
         "search_kernel_vs_plain": vs_plain,
         "plan": {s.site: {"tag": s.cfg.tag(), "error_bits": s.error_bits,
@@ -2947,14 +3196,23 @@ def main() -> None:
     routed = routed_phase(torch, dev, cfg, params, qwen["tokens"], searched, searched_policy,
                           workloads["zoo"], eng_q["result"]["graph"]["tok_s"])
     del params
-    drop_weights(cfg)
     torch.cuda.empty_cache()
     routed_launches = routed["routed"]["launched"].get("fdp_gemm", 0)
     routed_replays = routed["routed"]["replays_traced"]
 
+    # -- 20. autotune and the schedule zoo ------------------------------------
+    phase("20")
+    params = weights(torch, cfg, dev)                     # phase 3's weights
+    sched = schedules_phase(torch, dev, cfg, params, qwen["tokens"], eng_q["tokens"],
+                            qwen_requests, qwen["tok_s"], eng_q["result"]["graph"]["tok_s"])
+    del params
+    drop_weights(cfg)
+    torch.cuda.empty_cache()
+    autotune_launches_total = tailoring["autotune"]["launches"] + sched["autotune_launches"]
+
     phase("")
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-19 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-20 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -2965,7 +3223,8 @@ def main() -> None:
         "launches": (qwen["launches"]["fdp_gemm"] + dbrx["launches"]["fdp_gemm"]
                      + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
                      + tailored_launches + workloads["launches"]["total"]
-                     + sum(engine_launches["fdp_gemm"].values()) + routed_launches),
+                     + sum(engine_launches["fdp_gemm"].values()) + routed_launches
+                     + autotune_launches_total + sched["dense_launches_on_persisted"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -2976,7 +3235,10 @@ def main() -> None:
                              "qwen3-0.6b workloads and validated search (phase 17)":
                                  workloads["launches"]["total"],
                              **engine_launches["fdp_gemm"],
-                             "routed tier (phase 19)": routed_launches},
+                             "routed tier (phase 19)": routed_launches,
+                             "autotuner's candidates (phases 16, 20)": autotune_launches_total,
+                             "serve and graph engine on the cuda zoo (phase 20)":
+                                 sched["dense_launches_on_persisted"]},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -2990,7 +3252,7 @@ def main() -> None:
         "dense_shapes": dense, "sass": sass["fdp_gemm.cu"],
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
-        "continuous": continuous, "routed_serving": routed,
+        "continuous": continuous, "routed_serving": routed, "schedules": sched,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

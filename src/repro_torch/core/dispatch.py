@@ -30,8 +30,11 @@ with none, the check is one ``is None``. A
 ``PrecisionPlan`` JSON deploys through ``policy_from_plan``; its non-GEMM
 (optimizer-state, collective) assignments ride in ``NumericsPolicy.aux``.
 
-``reduce_axis`` (sharded contractions) and plan autotuning come with later
-slices.
+In ``pallas`` mode every dense FDP dispatch resolves one ``GemmPlan``
+(``plan_gemm``, cached per problem) for the launch the kernel makes; a
+plan measured on the card (``plan_gemm(autotune=True)``, or preloaded from
+the schedule zoo of ``core.schedules``) names that launch. ``reduce_axis``
+(sharded contractions) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -39,14 +42,18 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import threading
+import time
 from typing import Optional, Union
 
 import torch
 
+from repro_torch.device import capturing
 from repro_torch.obs.registry import default_registry as _obs_registry
 
 from .accumulator import SAFE_CHUNK, AccumulatorSpec
+from .fdp import segment_ids as _segment_ids
 from .formats import BF16, FP32, FloatFormat, PositFormat
 
 # Native fp32 must be full fp32, as the reference's f32 dot is. TF32 keeps
@@ -367,17 +374,39 @@ def _maybe_trace(site_key, cfg, a, b, out):
 # ---------------------------------------------------------------------------
 # GemmPlan: cached block-size plans
 # ---------------------------------------------------------------------------
+# The fields of a launch of the dense kernel (``kernels.fdp_gemm.DenseLaunch``)
+# that a plan may name, in order.
+LAUNCH_FIELDS = ("lc", "tm", "tn", "tx", "ty", "ks", "bks")
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    """Block sizes for one (shape, fmt, spec, backend) problem instance,
-    resolved and fitted as in the reference. The CUDA kernel's tile is
-    fixed, so dispatch resolves no plan per call and a plan changes no
-    launch (``kernels.ops``)."""
+    """Block sizes for one (shape, fmt, spec, backend) problem instance, and
+    optionally the launch of the dense kernel that runs it.
+
+    ``source`` records provenance: "heuristic" (shape-derived table),
+    "measured" (autotuned on this host), "persisted" (installed from a
+    schedule zoo) or "override" (``register_plan``). ``launch`` holds the
+    seven ``LAUNCH_FIELDS`` of a ``kernels.fdp_gemm.DenseLaunch`` when the
+    plan names one (measured plans do); ``bm, bn, bk`` are then its block
+    tile. A plan without a launch leaves the layout to the kernel's cost
+    model (``dense_launch``); one with a launch is launched as named, or
+    refused where it is not a layout of the call."""
 
     bm: int
     bn: int
     bk: int
     source: str = "heuristic"
+    launch: Optional[tuple] = None
+
+    def __post_init__(self):
+        if self.launch is None:
+            return
+        if len(self.launch) != len(LAUNCH_FIELDS):
+            raise ValueError(f"a launch has the fields {LAUNCH_FIELDS}, got {self.launch}")
+        lc, tm, tn, tx, ty, ks, bks = self.launch
+        if self.tile != (ty * tm, tx * tn, ks * bks):
+            raise ValueError(f"blocks {self.tile} are not the tile of launch {self.launch}")
 
     @property
     def tile(self) -> tuple:
@@ -385,7 +414,11 @@ class GemmPlan:
 
     def fit(self, m: int, n: int, k: int) -> "GemmPlan":
         """Clamp this plan to one problem: blocks stop at the (8-aligned)
-        problem dims and bk at the SAFE_CHUNK carry-headroom bound."""
+        problem dims and bk at the SAFE_CHUNK carry-headroom bound. A plan
+        that names a launch is returned as it is: its blocks are the
+        launch's tile, which the kernel checks against the call."""
+        if self.launch is not None:
+            return self
         bm = min(self.bm, _ceil8(m))
         bn = min(self.bn, _ceil8(n))
         bk = min(min(self.bk, SAFE_CHUNK), _ceil8(k))
@@ -410,9 +443,11 @@ def _heuristic_plan(batch: int, m: int, n: int, k: int) -> GemmPlan:
 class PlanCacheStats:
     """Typed snapshot of the plan cache's counters, a view over the obs
     registry (``repro_plan_cache_ops_total{op=...}`` and
-    ``repro_plan_cache_size``, the reference's names). ``autotuned`` and
-    ``persisted_loads`` stay 0 in the port until plan autotuning and the
-    schedule zoo are ported."""
+    ``repro_plan_cache_size``, the reference's names). ``autotuned`` counts
+    plans measured by ``plan_gemm(autotune=True)``; ``persisted_loads``
+    counts entries installed from a schedule zoo, so a warm process serving
+    out of a checked-in zoo shows ``misses == 0`` and ``persisted_loads >
+    0``."""
 
     size: int
     hits: int
@@ -438,19 +473,41 @@ _PLAN_SIZE = _obs_registry().gauge(
 
 
 def plan_gemm(m: int, n: int, k: int, *, fmt, spec: AccumulatorSpec,
-              batch: int = 1, backend: str = "cuda") -> GemmPlan:
-    """Resolve (and cache) the block-size plan for one GEMM problem, keyed
-    by (batch, M, N, K, fmt, spec, backend)."""
+              batch: int = 1, backend: str = "cuda", autotune: bool = False,
+              report: Optional[list] = None) -> GemmPlan:
+    """Resolve (and cache) the plan for one GEMM problem, keyed by (batch,
+    M, N, K, fmt, spec, backend); ``backend`` is the device type of the
+    operands ("cuda" or "cpu").
+
+    The default is the heuristic table (no launch named, no kernel run).
+    ``autotune`` measures the dense kernel's candidate launches on the
+    backend's device (``_measure_plan``) and caches the winner, upgrading a
+    cached ``heuristic`` entry in place; ``measured``, ``persisted`` and
+    ``override`` entries are never re-measured. It is refused while the
+    current stream is being captured into a CUDA graph. ``report``, when
+    given, receives one record a candidate timed."""
+    if autotune and capturing():
+        raise RuntimeError("plan_gemm(autotune=True) runs kernels; it is refused "
+                           "while a CUDA graph is being captured")
     key = (batch, m, n, k, fmt.name, spec, backend)
     with _PLAN_LOCK:
         cached = _PLAN_CACHE.get(key)
-        if cached is not None:
+        if cached is not None and (not autotune or cached.source != "heuristic"):
             _PLAN_OPS.inc(op="hits")
             return cached
-        _PLAN_OPS.inc(op="misses")
-        plan = _PLAN_CACHE.setdefault(key, _heuristic_plan(batch, m, n, k))
+        if not autotune:
+            _PLAN_OPS.inc(op="misses")
+            plan = _PLAN_CACHE.setdefault(key, _heuristic_plan(batch, m, n, k))
+            _PLAN_SIZE.set(len(_PLAN_CACHE))
+            return plan
+    plan = _measure_plan(m, n, k, fmt=fmt, spec=spec, batch=batch, backend=backend,
+                         report=report)
+    _PLAN_OPS.inc(op="autotuned")
+    _PLAN_OPS.inc(op="misses")
+    with _PLAN_LOCK:
+        _PLAN_CACHE[key] = plan
         _PLAN_SIZE.set(len(_PLAN_CACHE))
-        return plan
+    return plan
 
 
 def register_plan(m: int, n: int, k: int, plan: GemmPlan, *, fmt,
@@ -477,6 +534,75 @@ def clear_plan_cache() -> None:
         _PLAN_CACHE.clear()
         _PLAN_SIZE.set(0)
     _PLAN_OPS.clear()
+
+
+# The autotuner. Candidates: the AUTOTUNE_TOP launches of the dense kernel
+# that its cost model ranks first for the call (the reference weighs 7
+# tiles and its heuristic), the model's own pick among them. Timing
+# discipline (the reference's): best of MEASURE_REPS samples, each looping
+# the call until it has run MEASURE_MIN_SECONDS.
+AUTOTUNE_TOP = 8
+MEASURE_REPS = 3
+MEASURE_MIN_SECONDS = 1e-3
+
+
+def _time_candidate(fn, *, reps: int = MEASURE_REPS,
+                    min_seconds: float = MEASURE_MIN_SECONDS, sync=None) -> float:
+    """Best-of-``reps`` seconds a call of ``fn`` (already warm), each sample
+    looping the call until it clears ``min_seconds``. ``sync`` waits for the
+    device (``torch.cuda.synchronize`` on a card): the clock is read around
+    it."""
+    sync = sync or (lambda: None)
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    dt = max(time.perf_counter() - t0, 1e-9)
+    inner = max(1, math.ceil(min_seconds / dt))
+    best = dt if inner == 1 else float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        sync()
+        best = min(best, (time.perf_counter() - t0) / inner)
+    return best
+
+
+def _measure_plan(m: int, n: int, k: int, *, fmt, spec: AccumulatorSpec, batch: int = 1,
+                  backend: str = "cuda", report: Optional[list] = None) -> GemmPlan:
+    """Time the dense kernel's candidate launches (``AUTOTUNE_TOP`` of
+    ``kernels.fdp_gemm.dense_candidates``) for a (batch, m, k) @ (batch, k,
+    n) launch on operands from a seeded generator on the ``backend``'s
+    device, and return the fastest as a ``measured`` plan naming its launch.
+    Every candidate's output must equal the model pick's (``torch.equal``),
+    and a refused launch raises. On CPU tensors every candidate runs the
+    plain version: the logic is exercised there, not the pick."""
+    from repro_torch.kernels import fdp_gemm as K
+    dev = torch.device(backend)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((batch, m, k), generator=gen, device=dev)
+    b = torch.randn((batch, k, n), generator=gen, device=dev)
+    if isinstance(fmt, PositFormat):
+        a, b = fmt.from_float(a), fmt.from_float(b)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None
+    cands = K.dense_candidates(spec.num_limbs, batch, m, n, k, K.device_sms(dev),
+                               AUTOTUNE_TOP)
+    want, best = None, None
+    for rank, lay in enumerate(cands):
+        fn = lambda lay=lay: K.fdp_gemm(a, b, spec=spec, fmt=fmt, launch=lay)
+        out = fn()                                    # build, warm
+        if want is None:
+            want = out
+        elif not torch.equal(out, want):
+            raise RuntimeError(f"launch {lay} disagrees with the model pick {cands[0]} "
+                               f"at ({batch}, {m}, {n}, {k})")
+        seconds = _time_candidate(fn, sync=sync)
+        if report is not None:
+            report.append({"rank": rank, "launch": lay, "seconds": seconds})
+        if best is None or seconds < best[1]:
+            best = (lay, seconds)
+    lay = best[0]
+    return GemmPlan(*lay.tile, source="measured", launch=dataclasses.astuple(lay))
 
 
 # ---------------------------------------------------------------------------
@@ -512,6 +638,9 @@ def _execute(cfg: GemmConfig, a: torch.Tensor, b: torch.Tensor, *,
         f = lambda x, y: fdp.fdp_gemm(x, y, cfg.acc, cfg.fmt)
         return _batched_apply(f, a, b)
 
+    # pallas: without a plan, the kernel wrapper resolves one (plan_gemm) for
+    # the launch it makes, the counterpart of the reference's
+    # _plan_for_operands here
     from repro_torch.kernels import ops as kops
     return kops.fdp_gemm_nd(a, b, spec=cfg.acc, fmt=cfg.fmt, plan=plan)
 
@@ -589,8 +718,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, site: Union[str, GemmSite] = "gene
          plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """Policy-dispatched matmul with ``torch.matmul`` semantics; f32 out.
     Differentiating through it dispatches ``<site>@bwd.dA`` (G·Bᵀ) and
-    ``<site>@bwd.dB`` (Aᵀ·G) under the policy captured here. ``plan`` is
-    checked as in the reference (pallas mode only) and changes no launch."""
+    ``<site>@bwd.dB`` (Aᵀ·G) under the policy captured here. ``plan``
+    (pallas mode only) replaces the plan the call would resolve: its launch,
+    if it names one, runs the dense kernel."""
     pol = policy or current_policy()
     return _Gemm.apply(a, b, GemmSite.parse(site), pol, plan)
 
@@ -708,23 +838,17 @@ def grouped_av(p: torch.Tensor, v: torch.Tensor, *,
 
 
 # -- grouped (expert) GEMM --------------------------------------------------
-def _segment_ids(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Segment id per sorted row from the group-size prefix sums; rows beyond
-    sum(group_sizes) get id E (no group). Computed on the device."""
-    bounds = torch.cumsum(group_sizes, dim=0)
-    rows = torch.arange(n_rows, device=group_sizes.device)
-    return (rows[:, None] >= bounds[None, :]).sum(dim=1)
-
-
 def _fit_ragged(plan: GemmPlan, axis: str, n_rows: int, n_groups: int) -> GemmPlan:
     """Clamp the plan's token-axis block to the mean segment size (8-aligned),
-    as the reference does for its tile walk. No launch reads the result: the
-    CUDA kernel's row tiles come from ``kernels.fdp_gemm.ragged_launch``,
-    which sizes them from the same mean (T / E) rather than from a plan."""
+    as the reference does for its tile walk, and drop a launch the plan may
+    name (one measured for the dense kernel). No launch reads the result:
+    the sorted-segment kernels' layouts come from
+    ``kernels.fdp_gemm.ragged_launch``/``ragged_dw_launch``, which size their
+    tiles from the same mean (T / E) rather than from a plan."""
     block = min(getattr(plan, axis), _ceil8(max(1, n_rows // max(1, n_groups))))
-    if block == getattr(plan, axis):
+    if block == getattr(plan, axis) and plan.launch is None:
         return plan
-    return dataclasses.replace(plan, **{axis: block})
+    return dataclasses.replace(plan, launch=None, **{axis: block})
 
 
 def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
@@ -736,7 +860,9 @@ def _ragged_execute(site: GemmSite, cfg: GemmConfig, x: torch.Tensor,
                ``jax.lax.ragged_dot`` has no torch counterpart). Nothing is
                read on the host, and rows past the total are 0.0.
     simulate - ``core.fdp.fdp_ragged_gemm``: one FDP GEMM per group on its
-               rows (reads the group sizes on the host; the plain oracle).
+               rows (reads the group sizes on the host; the plain oracle),
+               or, while a CUDA graph is being captured, every group over
+               all T rows selected on the device (the same bits).
     pallas   - the sorted-segment kernel (its plain version on the CPU).
 
     The trace hooks see one (T, d) x (E*d, f) call: the rows and the whole
@@ -767,7 +893,10 @@ def _ragged_mode_switch(cfg: GemmConfig, x: torch.Tensor, w: torch.Tensor,
         from . import fdp
         return fdp.fdp_ragged_gemm(x, w, group_sizes, cfg.acc, cfg.fmt)
     from repro_torch.kernels import ops as kops
-    return kops.fdp_ragged_gemm(x, w, group_sizes, spec=cfg.acc, fmt=cfg.fmt)
+    E, d, f = w.shape
+    plan = plan_gemm(x.shape[0], f, d, fmt=cfg.fmt, spec=cfg.acc, backend=x.device.type)
+    return kops.fdp_ragged_gemm(x, w, group_sizes, spec=cfg.acc, fmt=cfg.fmt,
+                                plan=_fit_ragged(plan, "bm", x.shape[0], E))
 
 
 def _ragged_dw(site: GemmSite, cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor,
@@ -808,8 +937,10 @@ def _ragged_dw_mode_switch(cfg: GemmConfig, x: torch.Tensor, g: torch.Tensor,
         from . import fdp
         return fdp.fdp_ragged_dw(x, g, group_sizes, cfg.acc, cfg.fmt)
     from repro_torch.kernels import ops as kops
+    d, f = x.shape[1], g.shape[1]
+    plan = plan_gemm(d, f, x.shape[0], fmt=cfg.fmt, spec=cfg.acc, backend=x.device.type)
     return kops.fdp_ragged_dw(x, g, group_sizes, num_groups=E, spec=cfg.acc,
-                              fmt=cfg.fmt)
+                              fmt=cfg.fmt, plan=_fit_ragged(plan, "bk", x.shape[0], E))
 
 
 class _Ragged(torch.autograd.Function):

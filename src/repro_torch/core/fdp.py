@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import capturing
+
 from . import accumulator as acc
 from .accumulator import SAFE_CHUNK, AccumulatorSpec
 from .formats import FP32, FloatFormat, PositFormat
@@ -101,17 +103,30 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec,
                       for n0 in range(0, N, nb)], dim=1)
 
 
+def segment_ids(group_sizes: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Segment id per sorted row from the group-size prefix sums; rows beyond
+    sum(group_sizes) get id E (no group). Computed on the device."""
+    bounds = torch.cumsum(group_sizes, dim=0)
+    rows = torch.arange(n_rows, device=group_sizes.device)
+    return (rows[:, None] >= bounds[None, :]).sum(dim=1)
+
+
 def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                     spec: AccumulatorSpec,
                     fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
     """Grouped (expert) GEMM with FDP accumulation: ``x (T, d)`` rows sorted
     by group, ``w (E, d, f)``, ``group_sizes (E,)`` -> ``(T, f)`` f32. Row t
     contracts against its group's weights; rows past ``sum(group_sizes)``
-    are 0.0. One ``fdp_gemm`` per non-empty group on its rows (T*d*f
-    products; the reference's ``simulate`` mode runs every group over all T
-    rows and selects, which gives the same bits because each output row
-    depends only on its own row and weights). Reads the group sizes on the
-    host."""
+    are 0.0.
+
+    Eager, one ``fdp_gemm`` per non-empty group on its rows (T*d*f
+    products), which reads the group sizes on the host. While the current
+    stream is being captured into a CUDA graph, where no host read may
+    happen, ``fdp_ragged_gemm_all_rows`` instead (E*T*d*f products). Both
+    give the same bits: each output row depends only on its own row and
+    its group's weights."""
+    if capturing():
+        return fdp_ragged_gemm_all_rows(x, w, group_sizes, spec, fmt)
     T, f = x.shape[0], w.shape[2]
     out = torch.zeros((T, f), dtype=torch.float32, device=x.device)
     start = 0
@@ -120,6 +135,20 @@ def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
         if stop > start:
             out[start:stop] = fdp_gemm(x[start:stop], w[e], spec, fmt)
         start = stop
+    return out
+
+
+def fdp_ragged_gemm_all_rows(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                             spec: AccumulatorSpec,
+                             fmt: FloatFormat | PositFormat = FP32) -> torch.Tensor:
+    """``fdp_ragged_gemm`` in the reference's ``simulate`` order: every group
+    over all T rows, each row's output selected on the device by its
+    segment id (``segment_ids``), rows past the total 0.0. Nothing is read
+    on the host, so a CUDA graph can capture it."""
+    seg = segment_ids(group_sizes, x.shape[0])[:, None]
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.float32, device=x.device)
+    for e in range(w.shape[0]):
+        out = torch.where(seg == e, fdp_gemm(x, w[e], spec, fmt), out)
     return out
 
 

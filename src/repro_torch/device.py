@@ -14,3 +14,9 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def capturing() -> bool:
+    """True while the current CUDA stream is being captured into a graph,
+    where nothing may be read back to the host; False without a card."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()

@@ -44,7 +44,9 @@ limbs, so a narrow register costs less), and a product enters it with two
 shifts a word and one add-with-carry chain, with no carry pending at any
 time. ``dense_launch`` picks the capacity, the rows a thread owns, the
 thread layout and the K split, the least costly by a model fitted to the
-kernel's device times (``dense_cost``), and ``dense_plan`` folds a weight
+kernel's device times (``dense_cost``), unless the call's plan names a
+launch measured on the card (``core.dispatch.plan_gemm(autotune=True)``,
+the zoo of ``core.schedules``); ``dense_plan`` folds a weight
 broadcast over the batch into the rows (``fold_broadcast``) so that it is
 read once. The tile table is ``csrc/fdp_gemm_tiles.def``, which the kernels
 include and ``dense_launch`` reads.
@@ -78,6 +80,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import heapq
 import math
 import os
 import re
@@ -356,17 +359,46 @@ def dense_cost(lay: DenseLaunch, batch: int, rows: int, cols: int, depth: int,
     return waves * work
 
 
+def dense_candidates(num_limbs: int, batch: int, rows: int, cols: int, depth: int,
+                     sms: int, top: int) -> list:
+    """The ``top`` layouts of ``dense_layouts`` for a (batch, rows, depth) @
+    (batch, depth, cols) call in ``dense_launch``'s order: least
+    ``dense_cost`` first; on a tie, more rows a thread, then the smaller K
+    split, then the deeper chunk. The first is ``dense_launch``'s pick. The
+    autotuner times these (``core.dispatch._measure_plan``)."""
+    return heapq.nsmallest(
+        top, dense_layouts(num_limbs, rows, cols, depth),
+        key=lambda lay: (dense_cost(lay, batch, rows, cols, depth, sms), -lay.tm,
+                         lay.ks, -lay.bks))
+
+
 @functools.lru_cache(maxsize=4096)
 def dense_launch(num_limbs: int, batch: int, rows: int, cols: int, depth: int,
                  sms: int) -> DenseLaunch:
     """The dense kernel's launch for a (batch, rows, depth) @ (batch, depth,
     cols) call at ``num_limbs`` limbs on a card of ``sms`` multiprocessors:
-    of ``dense_layouts``, the one of least ``dense_cost``; on a tie, the one
-    with more rows a thread, then the smaller K split, then the deeper
-    chunk."""
-    return min(dense_layouts(num_limbs, rows, cols, depth),
-               key=lambda lay: (dense_cost(lay, batch, rows, cols, depth, sms), -lay.tm,
-                                lay.ks, -lay.bks))
+    of ``dense_layouts``, the one of least ``dense_cost`` (the first of
+    ``dense_candidates``). A plan with a measured launch overrides it
+    (``dense_plan``)."""
+    return dense_candidates(num_limbs, batch, rows, cols, depth, sms, 1)[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout_set(num_limbs: int, rows2: int, cols2: int, depth2: int) -> frozenset:
+    # dense_layouts reads rows, cols and depth only through their powers of two
+    return frozenset(dense_layouts(num_limbs, rows2, cols2, depth2))
+
+
+def check_launch(lay: DenseLaunch, num_limbs: int, rows: int, cols: int,
+                 depth: int) -> DenseLaunch:
+    """``lay`` if it is one of ``dense_layouts`` for the call, else
+    ValueError: a launch that the layouts of this call do not hold is
+    refused, never replaced."""
+    if lay not in _layout_set(num_limbs, _pow2_at_least(rows), _pow2_at_least(cols),
+                              _pow2_at_least(depth)):
+        raise ValueError(f"{lay} is not a layout of the dense kernel for a "
+                         f"({rows}, {depth}) @ ({depth}, {cols}) call at {num_limbs} limbs")
+    return lay
 
 
 @functools.lru_cache(maxsize=4096)
@@ -417,23 +449,50 @@ def fold_broadcast(a: torch.Tensor, b: torch.Tensor):
 _GRID_YZ = 65535            # a grid's limit on its y and z axes
 
 
-def dense_plan(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int) -> tuple:
-    """``(a', b', launch)``: the operands as the dense kernel takes them
-    and its ``dense_launch``. The call is folded (``fold_broadcast``) where
-    it folds and the folded rows fit the grid's 65535 row tiles; else it is
-    launched as given (B and M each within the grid, or ValueError)."""
+def launch_operands(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int) -> tuple:
+    """``(a', b')``, the operands as the dense kernel launches them: folded
+    (``fold_broadcast``) where the call folds and the folded rows fit the
+    grid's 65535 row tiles under ``dense_launch``'s layout for them; else as
+    given. Their shapes are the launch a plan is resolved for
+    (``kernels.ops``), whatever launch the plan then names."""
     folded = fold_broadcast(a, b)
     if folded is not None:
         fa, fb = folded
         lay = dense_launch(num_limbs, 1, fa.shape[1], fb.shape[2], fa.shape[2], sms)
         if lay.grid(1, fa.shape[1], fb.shape[2])[1] <= _GRID_YZ:
-            return fa, fb, lay
+            return fa, fb
+    return a, b
+
+
+def dense_plan(a: torch.Tensor, b: torch.Tensor, num_limbs: int, sms: int,
+               launch: DenseLaunch | None = None) -> tuple:
+    """``(a', b', launch)``: the operands as the dense kernel takes them
+    (``launch_operands``) and the launch, ``dense_launch``'s or the given
+    one, which must be one of the call's ``dense_layouts``. B and the row
+    tiles must fit the grid, or ValueError."""
+    a, b = launch_operands(a, b, num_limbs, sms)
     Bn, M, K = a.shape
-    lay = dense_launch(num_limbs, Bn, M, b.shape[2], K, sms)
-    if lay.grid(Bn, M, b.shape[2])[1] > _GRID_YZ or Bn > _GRID_YZ:
+    N = b.shape[2]
+    lay = (dense_launch(num_limbs, Bn, M, N, K, sms) if launch is None
+           else check_launch(launch, num_limbs, M, N, K))
+    if lay.grid(Bn, M, N)[1] > _GRID_YZ or Bn > _GRID_YZ:
         raise ValueError(f"batch {Bn} or rows {M} exceed the kernel grid ({_GRID_YZ} "
                          f"tiles of {lay.tile[0]} rows, {_GRID_YZ} batch elements)")
     return a, b, lay
+
+
+# The multiprocessors of the H100 SXM that dense_cost was fitted on: the
+# layouts of a call on CPU tensors, which run the plain version, are weighed
+# for it, so that a plan key names the same launch shape on either device.
+PLAIN_SMS = 132
+
+
+def device_sms(device: torch.device) -> int:
+    """The multiprocessors a call's layouts are weighed for: the card's for
+    a CUDA tensor, ``PLAIN_SMS`` for a CPU tensor."""
+    if device.type != "cuda":
+        return PLAIN_SMS
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,7 +512,7 @@ def fdp_gemm_plain(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
 
 
 def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
-             fmt) -> torch.Tensor:
+             fmt, launch: DenseLaunch | None = None) -> torch.Tensor:
     """(B,M,K) @ (B,K,N) -> (B,M,N) f32 through the exact FDP datapath.
 
     ``a`` and ``b`` may have any strides, 0 included (a broadcast weight
@@ -461,8 +520,10 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
     once: ``dense_plan``). Float formats take float tensors (read as
     f32, as the reference decodes them); posit formats take int32 bit
     patterns. CPU tensors run ``fdp_gemm_plain``; CUDA tensors launch the
-    kernel (counted in ``fdp_gemm.launches``) with ``dense_launch``'s
-    layout for the card's multiprocessor count."""
+    kernel (counted in ``fdp_gemm.launches``) with ``launch``, or without
+    one ``dense_launch``'s layout for the card's multiprocessor count. A
+    ``launch`` that is not one of the call's ``dense_layouts`` raises
+    ValueError, on CPU tensors too. Every layout gives the same bits."""
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
         raise ValueError(f"fdp_gemm expects (B,M,K) @ (B,K,N), got "
@@ -470,11 +531,12 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
     on = _check_device(a, b)
     a, b = _carriers(fmt, a, b)
     if on == "cpu":
+        if launch is not None:
+            dense_plan(a, b, spec.num_limbs, PLAIN_SMS, launch)
         return fdp_gemm_plain(a, b, spec=spec, fmt=fmt)
     numerics = _numerics_args(spec, fmt)
     shape = (a.shape[0], a.shape[1], b.shape[2])
-    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    a, b, lay = dense_plan(a, b, spec.num_limbs, _sm_count(index))
+    a, b, lay = dense_plan(a, b, spec.num_limbs, device_sms(a.device), launch)
     Bn, M, K = a.shape
     N = b.shape[2]
     out = torch.empty((Bn, M, N), dtype=torch.float32, device=a.device)

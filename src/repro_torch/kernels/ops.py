@@ -3,19 +3,32 @@
 last both forward and weight gradient).
 
 Every entry point takes ``plan: GemmPlan | None`` as the reference's
-GemmPlan-first API does, and a given plan is checked through
-``resolve_plan``. No plan changes the vector kernels' launch: the dense
-kernel picks its layout from the shape and register width
-(``fdp_gemm.dense_launch``), the sorted-segment ones have a fixed tile; the
-seed-order kernel of ``fdp_gemm(impl="loop")`` takes its block tile and
-carry cadence from the fitted plan. Every kernel
+GemmPlan-first API does. The dense entry points (``fdp_gemm``,
+``fdp_gemm_batched``), called without a plan, resolve one through
+``core.dispatch.plan_gemm`` for the launch the kernel makes: (B, M, N, K)
+after a weight broadcast over the batch is folded into the rows
+(``fdp_gemm.launch_operands``), on CPU tensors too. This is the
+reference's ``_plan_for_operands``, one lookup per FDP dispatch; its keys
+differ from the reference's only where a weight is folded ((B, S, d) @
+(d, f) is keyed (1, B*S, f, d), where the reference keys batch B), so that
+a stored launch is always a layout of the launch made. A plan that names a
+launch (measured, or preloaded from the schedule zoo) runs the dense
+kernel with it, and one that is not a layout of the call raises; a plan
+without one leaves the layout to ``fdp_gemm.dense_launch``. Every layout
+gives the same bits. The sorted-segment kernels take their layouts from
+the shapes (``ragged_launch``, ``ragged_dw_launch``), and a plan given to
+them is only checked; the seed-order kernel of ``fdp_gemm(impl="loop")``
+takes its block tile and carry cadence from the fitted plan. Every kernel
 masks ragged edges itself, so no operand is padded.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.accumulator import AccumulatorSpec
 from repro_torch.core.dispatch import GemmPlan
 from repro_torch.core.formats import FP32
@@ -36,6 +49,26 @@ def resolve_plan(plan, M: int, N: int, K: int) -> GemmPlan:
     return plan.fit(M, N, K)
 
 
+def _dense(a: torch.Tensor, b: torch.Tensor, spec: AccumulatorSpec, fmt,
+           plan: GemmPlan | None) -> torch.Tensor:
+    """One dense-kernel call (B,M,K) @ (B,K,N) under ``plan``, or without
+    one under the plan ``plan_gemm`` resolves for the launch made. The
+    operands are cast to their carriers first: the fold reads the strides
+    that the kernel gets."""
+    a, b = _k._carriers(fmt, a, b)
+    fa, fb = _k.launch_operands(a, b, spec.num_limbs, _k.device_sms(a.device))
+    batch, M, K = fa.shape
+    N = fb.shape[2]
+    if plan is None:
+        plan = dispatch.plan_gemm(M, N, K, fmt=fmt, spec=spec, batch=batch,
+                                  backend=a.device.type)
+    else:
+        plan = resolve_plan(plan, M, N, K)
+    launch = None if plan.launch is None else _k.DenseLaunch(*plan.launch)
+    out = _k.fdp_gemm(fa, fb, spec=spec, fmt=fmt, launch=launch)
+    return out.view(a.shape[0], a.shape[1], N)
+
+
 def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
              fmt=FP32, plan: GemmPlan | None = None,
              impl: str = "vector") -> torch.Tensor:
@@ -43,15 +76,16 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
 
     ``impl="vector"`` (the default) runs the batched kernel with B = 1;
     ``impl="loop"`` runs the seed-order kernel (``fdp_gemm_looped``), whose
-    block covers the fitted plan's tile (``_DEFAULT_TILE`` without a plan)
-    and whose carries normalize every ``bk`` products. Same bits either
-    way."""
+    block covers the fitted plan's tile (``_DEFAULT_TILE`` without a plan;
+    a plan's launch does not apply to it) and whose carries normalize every
+    ``bk`` products. Same bits either way."""
     if impl == "vector":
-        if plan is not None:
-            resolve_plan(plan, a.shape[0], b.shape[1], a.shape[1])
-        return _k.fdp_gemm(a[None], b[None], spec=spec, fmt=fmt)[0]
+        return _dense(a[None], b[None], spec, fmt, plan)[0]
     if impl == "loop":
         p = resolve_plan(plan, a.shape[0], b.shape[1], a.shape[1])
+        if p.launch is not None:
+            p = resolve_plan(dataclasses.replace(p, launch=None), a.shape[0], b.shape[1],
+                             a.shape[1])
         return _k.fdp_gemm_looped(a, b, p, spec=spec, fmt=fmt)
     raise ValueError(f"unknown impl {impl!r}")
 
@@ -59,9 +93,7 @@ def fdp_gemm(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
 def fdp_gemm_batched(a: torch.Tensor, b: torch.Tensor, *, spec: AccumulatorSpec,
                      fmt=FP32, plan: GemmPlan | None = None) -> torch.Tensor:
     """Batched GEMM: (B,M,K)@(B,K,N) -> (B,M,N) f32 in one launch."""
-    if plan is not None:
-        resolve_plan(plan, a.shape[1], b.shape[2], a.shape[2])
-    return _k.fdp_gemm(a, b, spec=spec, fmt=fmt)
+    return _dense(a, b, spec, fmt, plan)
 
 
 def fdp_ragged_gemm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,

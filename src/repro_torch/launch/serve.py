@@ -33,6 +33,10 @@ under ``--monitor`` the continuous and routed engines are built with
 ``--metrics-dump``, ``--metrics-port``/``--metrics-hold`` and
 ``--trace-out`` write the registry, serve it over HTTP, and export the span
 timeline.
+
+At startup the plan cache is preloaded from the schedule zoo of the
+device's backend (``core.schedules``: ``src/repro_torch/schedules/cuda.json``
+on the card), so the dense kernel launches the layouts measured there.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from repro_torch.core.accumulator import AccumulatorSpec
 from repro_torch.core.dispatch import (FDP91, MXU_BF16, MXU_FP32, GemmConfig,
                                        NumericsPolicy, policy_from_plan, use_policy)
 from repro_torch.core.formats import FP32
+from repro_torch.core.schedules import preload_schedules
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init, init_cache, prefill
 
@@ -154,6 +159,10 @@ def main(argv=None):
     policy = policy_from_args(args)
 
     dev = resolve_device(args.device)
+    n_sched = preload_schedules(backend=dev.type)
+    if n_sched:
+        print(f"[serve] schedule zoo: {n_sched} GEMM schedules preloaded "
+              f"(warm plan cache, zero autotune misses)")
     cfg = get_config(args.arch)
     base_arch = cfg.name
     if args.reduced:

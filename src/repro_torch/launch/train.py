@@ -17,7 +17,8 @@ plan assigns ``opt.m@state``/``opt.v@state``):
 ``--opt-precision`` wins over the plan's moment sites. ``--mesh``/
 ``--profile`` come with multi-device support (ROADMAP queue 1, *Multi-device*).
 Without ``--ckpt`` checkpoints go to a temporary directory that is removed
-at the end.
+at the end. The plan cache is preloaded from the device backend's schedule
+zoo first (``core.schedules``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.accumulator import AccumulatorSpec
 from repro_torch.core.dispatch import MXU_BF16
 from repro_torch.core.qformat import parse_quant
+from repro_torch.core.schedules import preload_schedules
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import POLICIES, policy_from_args
@@ -84,6 +86,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    n_sched = preload_schedules(backend=dev.type)
+    if n_sched:
+        print(f"[train] schedule zoo: {n_sched} GEMM schedules preloaded")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

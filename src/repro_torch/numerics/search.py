@@ -112,18 +112,17 @@ def _measure_latency_us(cfg: GemmConfig, profile: SiteProfile, device=None) -> f
     """Best-of-2 wall time, after a warm call, of the dispatched call at the
     site's *dominant traced shape* (operands from a seeded generator on the
     device: the tiny calibration sample would only measure dispatch
-    overhead). On a card the clock is read around ``synchronize``."""
+    overhead). Pallas candidates autotune their plan first, so the call
+    times the measured launch. On a card the clock is read around
+    ``synchronize``."""
     dev = resolve_device(device)
     (_, m, n, k), _count = max(profile.shapes.items(), key=lambda kv: kv[1])
     gen = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((m, k), generator=gen, device=dev)
     b = torch.randn((k, n), generator=gen, device=dev)
     if cfg.mode == "pallas":
-        # The reference autotunes the block plan here. The port has no
-        # autotuner (ROADMAP.md queue 1, *Autotune and schedules*): the
-        # kernel takes its launch layout from the shapes, so plan_gemm only
-        # resolves and caches the heuristic plan.
-        dispatch.plan_gemm(m, n, k, fmt=cfg.fmt, spec=cfg.acc)
+        dispatch.plan_gemm(m, n, k, fmt=cfg.fmt, spec=cfg.acc, backend=dev.type,
+                           autotune=True)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     fn = lambda: _apply_cfg(cfg, a, b, profile.site)
     fn()                                              # warm

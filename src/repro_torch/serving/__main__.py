@@ -25,9 +25,9 @@ out.json`` writes the registry + monitor + request-accounting snapshot
 out-of-envelope GEMM at the named plan site after the trace drains,
 ``--trace-out trace.json`` exports the span timeline as Chrome-trace JSON.
 
-The reference preloads the zoo's GEMM schedules (``core.schedules``) first;
-the port has no schedule zoo yet (ROADMAP queue 1, *Autotune and
-schedules*) and says so where the reference prints the preloaded count.
+The GEMM schedules of the device's backend are preloaded first
+(``core.schedules``; the port's zoo is ``src/repro_torch/schedules/``, where
+the reference reads ``<plans>/schedules``), and their count printed.
 """
 
 from __future__ import annotations
@@ -40,14 +40,13 @@ import sys
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.schedules import preload_schedules
 from repro_torch.device import resolve_device
 from repro_torch.models import init
 from repro_torch.serving import (BucketedEnginePool, PlanRouter, RoutedFrontend,
                                  ServeRequest, parse_buckets)
 
 CLASS_CYCLE = ("chat", "solve", "repro")
-SCHEDULES_SKIPPED = ("schedule preload skipped (core.schedules is not ported: "
-                     "ROADMAP queue 1, *Autotune and schedules*)")
 
 
 def build_trace(gen: torch.Generator, vocab: int, n: int, max_new: int) -> list:
@@ -99,6 +98,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    n_sched = preload_schedules(backend=dev.type)
     cfg = get_config(args.arch)
     # plans are recorded per base arch; the reduced config only shrinks shapes
     router = PlanRouter.from_manifest(args.plans, arch=cfg.name)
@@ -155,7 +155,7 @@ def main(argv=None):
           f"{pool_st['evictions']} evictions, resident={pool_st['resident']},"
           f" bucket_hits={pool_st['bucket_hits']}")
     ps = pool_st["plans"]
-    print(f"  plans: {SCHEDULES_SKIPPED}; cache size={ps['size']} "
+    print(f"  plans: {n_sched} preloaded from zoo; cache size={ps['size']} "
           f"hits={ps['hits']} misses={ps['misses']} "
           f"autotuned={ps['autotuned']} persisted={ps['persisted_loads']}")
     if streamed:

@@ -149,20 +149,32 @@ def test_native_bf16_returns_f32_of_bf16_operands():
 
 
 def test_site_counts_and_plan_cache():
-    _, tp = _pair("pallas")
+    jp, tp = _pair("pallas")
     a, b = _inputs(4, (2, 3, 24), (24, 5))
     TD.reset_sites_seen()
     TD.clear_plan_cache()
+    JD.clear_plan_cache()
     launches = tk.fdp_gemm.launches
     with TD.use_policy(tp):
         for _ in range(3):
             TD.gemm(torch.from_numpy(a), torch.from_numpy(b), site="mlp_in")
         TD.gemm(torch.from_numpy(a[0]), torch.from_numpy(b), site="lm_head")
+    with JD.use_policy(jp):
+        for _ in range(3):
+            JD.gemm(jnp.asarray(a), jnp.asarray(b), site="mlp_in")
+        JD.gemm(jnp.asarray(a[0]), jnp.asarray(b), site="lm_head")
     assert TD.sites_seen() == {"mlp_in", "lm_head"}
     assert TD.site_calls() == {"mlp_in": 3, "lm_head": 1}
-    # the kernel's tile is fixed: dispatch resolves no plan per call
-    assert TD.plan_cache_stats() == TD.PlanCacheStats(0, 0, 0, 0, 0)
+    # one plan resolved per FDP dispatch, as in the reference (the port keys
+    # the folded launch (1, 6, 5, 24) where the reference keys batch 2; the
+    # counts agree)
+    want = JD.plan_cache_stats()
+    assert TD.plan_cache_stats().as_dict() == want.as_dict()
+    assert want.as_dict() == {"size": 2, "hits": 2, "misses": 2, "autotuned": 0,
+                              "persisted_loads": 0}
     assert tk.fdp_gemm.launches == launches        # CPU tensors: no launch
+    JD.clear_plan_cache()
+    TD.clear_plan_cache()
     for _ in range(2):
         plan = TD.plan_gemm(3, 5, 24, fmt=tfmt.FP32,
                             spec=tacc.AccumulatorSpec.paper_91bit(), batch=2, backend="cpu")

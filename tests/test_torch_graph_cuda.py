@@ -174,12 +174,18 @@ def test_monitor_on_the_card_reads_nonfinite_outputs_from_their_max():
 
 @pytest.mark.cuda
 def test_simulate_moe_engine_refuses_capture():
-    """A ``simulate`` MoE step cannot be captured: ``core.fdp.fdp_ragged_gemm``
-    reads the group sizes on the host (``.tolist()``). The engine raises on
-    CUDA; it does not fall back to eager steps."""
+    """A ``simulate`` MoE step is captured: under capture
+    ``core.fdp.fdp_ragged_gemm`` reads no group size on the host (every
+    group over all rows, selected on the device), so the engine neither
+    refuses the capture nor falls back to eager steps, and its graph's
+    tokens equal its eager twin's."""
     _card()
     cfg = get_config("dbrx-132b").reduced(n_kv_heads=2)
     params = init(cfg, 0, device="cuda")
-    with pytest.raises(RuntimeError):
-        ContinuousBatcher(cfg, params, n_slots=2, max_len=16, warmup=TD.FDP91)
+    eager = ContinuousBatcher(cfg, params, n_slots=2, max_len=40, warmup=TD.FDP91,
+                              graph=False)
+    want = _serve(eager, cfg.vocab_size)
+    eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=40, warmup=TD.FDP91)
+    assert eng.graphed and eng.capture_count == 1 and not eng.step_launches
+    assert _serve(eng, cfg.vocab_size) == want and eng.replays > 0
     torch.cuda.synchronize()

@@ -17,7 +17,9 @@ bit-equal to the interpret-mode kernel, against which every case runs.
 The kernel's launch is chosen on the host from the shapes alone
 (``ragged_launch``), and each block finds its tile of one group's rows on
 the device; the last tests hold the launcher to decode shapes and a Python
-copy of the device's tile scan to the grid for many routings."""
+copy of the device's tile scan to the grid for many routings. While a CUDA
+graph is being captured, ``simulate`` runs every group over all rows and
+selects on the device: the same bits, with no host read."""
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from repro.core import formats as jfmt  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import accumulator as tacc  # noqa: E402
 from repro_torch.core import dispatch as TD  # noqa: E402
+from repro_torch.core import fdp as TF  # noqa: E402
 from repro_torch.core import formats as tfmt  # noqa: E402
 from repro_torch.kernels import fdp_gemm as tk  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -124,6 +127,37 @@ def test_ragged_bit_equal_across_groupings(groups):
     want = _check_all_paths(T, d, f, gs, "ieee_fp32", "trunc_wrap", seed=3)
     if groups == "all_empty":
         assert not want.any()
+
+
+@pytest.mark.parametrize("groups", list(GROUPS))
+def test_capture_order_simulate_path_equals_eager_and_jax(groups, monkeypatch):
+    """While a CUDA graph is being captured, ``core.fdp.fdp_ragged_gemm``
+    runs every group over all T rows and selects each row's output on the
+    device (``fdp_ragged_gemm_all_rows``), reading nothing on the host. It
+    is bit-equal to the eager path, which reads the group sizes, and to
+    JAX's ``ragged_gemm`` in ``simulate`` mode. The capture is stood in for
+    by ``capturing`` patched to True, and a host read raises."""
+    T, d, f, gs = GROUPS[groups]
+    x, w, _, tf = _operands(T, d, f, len(gs), "ieee_fp32", seed=11)
+    jsim, tsim = _policies("simulate", "ieee_fp32", "trunc_wrap")
+    with JD.use_policy(jsim):
+        want = _bits(JD.ragged_gemm(jnp.asarray(x), jnp.asarray(w),
+                                    jnp.asarray(gs, jnp.int32), site="t"))
+    tx, tw, tgs = torch.from_numpy(x), torch.from_numpy(w), torch.tensor(gs, dtype=torch.int32)
+    ts = tacc.AccumulatorSpec(**SPEC_ARGS["trunc_wrap"])
+    eager = TF.fdp_ragged_gemm(tx, tw, tgs, ts, tf)
+    all_rows = TF.fdp_ragged_gemm_all_rows(tx, tw, tgs, ts, tf)
+
+    def no_host_read(*args, **kwargs):
+        raise AssertionError("the group sizes were read on the host under capture")
+
+    monkeypatch.setattr(TF, "capturing", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "tolist", no_host_read)
+    with TD.use_policy(tsim):
+        captured = TD.ragged_gemm(tx, tw, tgs, site="t")
+    monkeypatch.undo()
+    assert torch.equal(all_rows, eager) and torch.equal(captured, eager)
+    np.testing.assert_array_equal(_bits(captured.numpy()), want)
 
 
 def test_native_within_reordering_error():
