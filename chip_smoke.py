@@ -84,9 +84,11 @@ Phases (any failure exits non-zero before the final line):
  10. the same model at batch 1 x seq 4: loss and every gradient in
      ``pallas`` mode torch.equal to ``simulate`` mode;
  11. the fault-tolerant ``Trainer`` on reduced dbrx-132b with checkpoints
-     in a temporary directory: an injected failure at step 2 is recovered,
+     in a temporary directory: an injected failure at step 3 is recovered,
      and the final parameters equal those of a run without it, which must
-     not restart;
+     not restart; the registry's ``repro_train_step_seconds`` counts each
+     executed step, ``repro_train_restarts_total`` the one restore, and a
+     ``train.step`` span a step;
  12. the seed-order kernel (``ops.fdp_gemm(impl="loop")``, one thread per
      output walking k in order, carries normalized every ``plan.bk``
      products) torch.equal to its plain version and to the vector kernel over
@@ -183,17 +185,25 @@ Phases (any failure exits non-zero before the final line):
      to two warm-up calls and one capture an engine, an evicted engine freed,
      the closed sum of ``metrics()``; 8 replays of the recaptured engine
      profiled; tok/s beside phase 18, capture seconds, the pool's stats and
-     memory; (b) four requests under ``searched`` through an eager pool
-     (``graph=False``) inside ``monitoring(searched)``: tokens equal to the
-     unmonitored graph engine's, graph engines refused while the hook is
-     installed, one dispatch at 2^70 at a ``pallas`` site flips exactly
-     that site to ``violated``; eager tok/s with and without the monitor;
+     memory; (b) the monitor inside the captured graph: a
+     ``ContinuousBatcher`` under ``searched`` (4 slots, max_len 40, phase
+     3's four prompts) captured under the monitor once, its launches a step
+     equal to the unmonitored engine's and its tokens too, no fold until a
+     reader asks, its snapshot equal to an eager twin's under a second
+     monitor, ``repro_monitor_calls_total`` a site equal to its dispatches
+     a step times the replays; a ``ScoreEngine`` captured under a monitor
+     equal to its eager twin (scores and snapshot); a calibration hook
+     refuses a capture; 8 profiled replays beside the unmonitored engine's;
+     one eager dispatch at 2^70 at a ``pallas`` site flips exactly that
+     site to ``violated``; tok/s (median of 3) of the monitored and the
+     bare graph engine and the monitored eager twin, and of one run of a
+     bare eager engine;
      (c) ``python -m repro_torch.serving --arch paper-mlp --requests 3
      --max-new 3`` as a subprocess with ``--metrics-dump --inject-violation
-     attn_qk --trace-out`` (eager engines under the monitor; three
-     requests, not the default nine, since the derived variants' eager
-     ``simulate`` steps dominate the phase), which prints the number of
-     schedules it preloaded from the checked-in cuda zoo;
+     attn_qk --trace-out`` (graph engines under the monitor, at least one
+     captured; three requests, not the default nine, since the derived
+     variants' ``simulate`` captures dominate the phase), which prints the
+     number of schedules it preloaded from the checked-in cuda zoo;
  20. autotune and the schedule zoo: (a) the plan cache cleared, the plan
      keys of phase 3's serve and phase 18's engine gathered
      (``core.schedules.serve_keys``) and each autotuned, with the mlp_in
@@ -240,6 +250,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -713,10 +724,16 @@ def traced_steps(torch, eng, make_requests, steps: int):
     if timeline is None:
         return None
     dev_events, busy_us, span_us = timeline
+    by_name: dict = {}
+    for name, start, end in dev_events:
+        n, ns = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, ns + end - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     return {"steps": steps, "device_events": len(dev_events), "span_s": span_us / 1e6,
             "device_busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / span_us,
             "kernels": {label: sum(symbol in name for name, _, _ in dev_events)
-                        for label, symbol in TRACE_NAMES.items()}}
+                        for label, symbol in TRACE_NAMES.items()},
+            "top": [(name[:70], n, ns / 1e9) for name, (n, ns) in top]}
 
 
 _HOST_WEIGHTS: dict = {}
@@ -912,9 +929,9 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
     from repro_torch.launch.batching import CacheExhausted, ContinuousBatcher, Request
     from repro_torch.launch.serve import FDP91_KERNEL
     from repro_torch.models import forward
-    from repro_torch.obs import monitoring, recorder
+    from repro_torch.obs import recorder
     from repro_torch.serving import (FDP_CAP_BITS, BucketedEnginePool, PlanRouter,
-                                     RoutedFrontend, RoutedPlan, ScoreEngine, ServeRequest,
+                                     RoutedFrontend, RoutedPlan, ServeRequest,
                                      parse_buckets, routed_plan_from_entry)
 
     t19 = time.perf_counter()
@@ -1176,78 +1193,10 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
                   "before": mem_before / 1e9, "peak": mem_peak / 1e9,
                   "after": mem_after / 1e9, "pool_dropped": mem_freed / 1e9}}
 
-    # -- (b) the monitor ------------------------------------------------------
+    # -- (b) the monitor inside the captured graph -----------------------------
     t = time.perf_counter()
-
-    def four():
-        return [ServeRequest(uid=i, prompt=p, max_new=GEN, workload="searched")
-                for i, p in enumerate(first)]
-
-    ref = ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=40, warmup=searched_policy)
-    raws = [Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(first)]
-    for raw in raws:
-        ref.submit(raw)
-    ref.run()
-    graph_tokens = [raw.out for raw in raws]
-    del ref
-
-    def eager_serve():
-        pool = BucketedEnginePool(cfg, params, "4x40", max_live=1, graph=False)
-        front = RoutedFrontend(pool, router)
-        cs = [front.submit(r) for r in four()]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        front.run()
-        torch.cuda.synchronize()
-        return [c.tokens for c in cs], time.perf_counter() - t0, sum(
-            c.decode_tokens for c in cs)
-
-    bare_tokens, bare_s, n_tok = eager_serve()
-    envelope = searched.meta["envelope"]["sites"]
-    site = next(s for s in sorted(envelope) if searched_policy.lookup(s).mode == "pallas")
-    with monitoring(searched) as mon:
-        for build in (lambda: ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=40,
-                                                warmup=searched_policy),
-                      lambda: ScoreEngine(cfg, params, parse_buckets("4x40")[0],
-                                          searched_policy)):
-            try:
-                build()
-            except RuntimeError as e:
-                if "trace hook" not in str(e):
-                    raise
-            else:
-                fail("a graph engine was built while the monitor was installed")
-        mon_tokens, mon_s, _ = eager_serve()
-        overflow = mon.registry.counter("repro_overflow_events_total", "",
-                                        ("site", "source"))
-        before = {s: i["status"] for s, i in mon.statuses().items()}
-        worst = mon.worst_status()
-        events0, counted0 = mon.overflow_events(), overflow.total()
-        D.gemm(torch.full((8, 16), 2.0 ** 70, device=dev),
-               torch.full((16, 8), 2.0 ** 70, device=dev), site=site, policy=searched_policy)
-        after = {s: i["status"] for s, i in mon.statuses().items()}
-        folds = mon.folds
-    if mon_tokens != graph_tokens or bare_tokens != graph_tokens:
-        fail("the monitored (or the bare eager) tokens != the unmonitored graph engine's")
-    changed = {s for s in after if after[s] != before.get(s)}
-    if changed != {site} or after[site] != "violated" or overflow.total() <= counted0:
-        fail(f"the injection at {site}: statuses changed at {changed} ({after.get(site)}), "
-             f"repro_overflow_events_total {counted0} -> {overflow.total()}")
+    monitor = monitor_part(torch, dev, cfg, params, first, searched, searched_policy)
     part_s["b"] = time.perf_counter() - t
-    by_status = collections.Counter(before.values())
-    off = {s: st for s, st in sorted(before.items()) if st != "inside"}
-    log(f"(b) under monitoring(searched): tokens == the unmonitored graph engine's; a graph "
-        f"engine and a score engine refused to capture; before the injection worst "
-        f"{worst}, sites by status {dict(by_status)}, not inside: {off or 'none'}; "
-        f"overflow events {events0}; one dispatch at "
-        f"{site!r} with operands at 2^70 flipped exactly it to violated, "
-        f"repro_overflow_events_total {counted0:.0f} -> {overflow.total():.0f}; {folds} folds")
-    log(f"    eager engine, 4 requests, {n_tok} tokens: {n_tok / bare_s:.2f} tok/s bare, "
-        f"{n_tok / mon_s:.2f} tok/s monitored ({mon_s / bare_s:.3f}x the seconds)")
-    monitor = {"site": site, "worst_before": worst, "statuses_before": dict(by_status),
-               "not_inside_before": off,
-               "overflow_events_before": events0, "folds": folds,
-               "eager_tok_s": n_tok / bare_s, "monitored_tok_s": n_tok / mon_s}
 
     # -- (c) the CLI ------------------------------------------------------------
     t = time.perf_counter()
@@ -1272,6 +1221,11 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
     with open(trace_out) as fh:
         n_events = len(json.load(fh)["traceEvents"])
     sm = doc["serving"]
+    graphs = re.search(r"engines captured with the monitor's reductions inside \((\d+) CUDA "
+                       r"graphs resident", proc.stdout)
+    if graphs is None or int(graphs.group(1)) < 1:
+        fail(f"python -m repro_torch.serving under the monitor captured no graph:\n"
+             f"{proc.stdout}")
     if doc["kind"] != "repro.obs.ServingMetricsDump" or \
             sm["submitted"] != sm["routed"] + sm["parked"] + sm["rejected"] or \
             doc["monitor"]["sites"]["attn_qk"]["status"] != "violated" or not n_events:
@@ -1280,7 +1234,8 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
     part_s["c"] = time.perf_counter() - t
     log(f"(c) python -m repro_torch.serving --arch paper-mlp --requests 3 --max-new 3 "
         f"--require-complete --metrics-dump --inject-violation attn_qk --trace-out, a "
-        f"subprocess (eager engines under the monitor: a chat request, a solve stream and "
+        f"subprocess ({graphs.group(1)} graph engines captured under the monitor: a chat "
+        f"request, a solve stream and "
         f"a repro score, the last two on the derived simulate variants): rc 0, dump kind "
         f"{doc['kind']}, serving {sm}, attn_qk violated, {n_events} trace events, "
         f"{n_zoo} schedules preloaded from the cuda zoo:")
@@ -1293,6 +1248,182 @@ def routed_phase(torch, dev, cfg, params, phase3_tokens, searched, searched_poli
     return {"routed": routed, "monitor": monitor,
             "cli": {"serving": sm, "events": n_events, "schedules_preloaded": n_zoo},
             "part_s": part_s, "phase_s": phase_s}
+
+
+def monitor_part(torch, dev, cfg, params, first, searched, searched_policy) -> dict:
+    """Phase 19 (b): the numerics monitor inside the captured graph (the
+    module docstring lists its checks). Four engines on phase 3's four
+    prompts under ``searched``, median of 3 runs each (one run of the bare
+    eager engine, for the script's time): the bare graph engine, a bare
+    eager one, an eager twin under a second monitor and the graph engine
+    captured under the monitor. Only the monitor of an
+    engine's runs is installed while they run. Returns the part's numbers."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    from repro_torch.numerics.trace import calibrate
+    from repro_torch.obs.monitor import NumericsMonitor
+    from repro_torch.obs.registry import Registry
+    from repro_torch.serving import ScoreEngine, parse_buckets
+    envelope = searched.meta["envelope"]
+    bucket = parse_buckets("4x40")[0]
+
+    def timed_runs(eng, n=3):
+        """``n`` runs of the four requests: each run's tokens and seconds."""
+        outs, secs = [], []
+        for _ in range(n):
+            raws = [Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(first)]
+            for raw in raws:
+                eng.submit(raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            outs.append([raw.out for raw in raws])
+            eng.reset_cache()
+        if any(o != outs[0] for o in outs):
+            fail("an engine's runs on the same requests gave other tokens")
+        return outs[0], secs
+
+    def engine(graph):
+        return ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=40,
+                                 warmup=searched_policy, graph=graph)
+
+    n_tok = BATCH * GEN
+    ref = engine(None)
+    graph_tokens, secs_bare_graph = timed_runs(ref)
+    bare_eager = engine(False)
+    bare_tokens, secs_bare_eager = timed_runs(bare_eager, n=1)     # the script's time
+    del bare_eager
+    twin = NumericsMonitor(envelope, registry=Registry())
+    with twin:
+        twin_tokens, secs_mon_eager = timed_runs(engine(False))
+    score_twin = NumericsMonitor(envelope, registry=Registry())
+    with score_twin:
+        eager_scores = ScoreEngine(cfg, params, bucket, searched_policy,
+                                   graph=False).score_batch(first)
+    score_mon = NumericsMonitor(envelope, registry=Registry())
+    with score_mon:
+        scorer = ScoreEngine(cfg, params, bucket, searched_policy)
+        graph_scores = scorer.score_batch(first)
+    if scorer.capture_count != 1 or graph_scores != eager_scores or \
+            json.dumps(score_mon.snapshot(), sort_keys=True) != \
+            json.dumps(score_twin.snapshot(), sort_keys=True):
+        fail(f"the score engine under the monitor: {scorer.capture_count} captures, scores "
+             f"{graph_scores} (eager twin {eager_scores}), or its snapshot != its eager "
+             f"twin's")
+    score_captured = dict(scorer.step_launches)
+    del scorer
+    mon = NumericsMonitor(envelope, registry=Registry()).install()
+    for w in K.KERNELS.values():
+        w.launches = w.captured = 0
+    eng = engine(None)
+    mon_tokens, secs_mon_graph = timed_runs(eng)
+    mon_launched = {n: w.launches for n, w in K.KERNELS.items() if w.launches}
+    mon_captured = {n: w.captured for n, w in K.KERNELS.items() if w.captured}
+    folds_before_reader = mon.folds
+    snap, twin_snap = mon.snapshot(), twin.snapshot()
+    calls = mon.registry.counter("repro_monitor_calls_total", "", ("site",))
+    replays = eng.replays
+    counted = {s: calls.value(site=s) for s in eng.step_dispatches}
+    want_counted = {s: n * replays for s, n in eng.step_dispatches.items()}
+    if eng.capture_count != 1 or mon_tokens != graph_tokens or twin_tokens != graph_tokens \
+            or bare_tokens != graph_tokens:
+        fail(f"the monitored graph engine: {eng.capture_count} captures; its tokens, the "
+             f"eager twin's or the bare eager engine's != the unmonitored graph engine's")
+    if eng.step_launches != ref.step_launches or mon_captured != eng.step_launches or \
+            mon_launched != {n: 2 * k for n, k in eng.step_launches.items()} or \
+            not eng.step_launches.get("fdp_gemm") or eng.step_launches["fdp_gemm"] != sum(
+                n for s, n in eng.step_dispatches.items()
+                if searched_policy.lookup(s).mode == "pallas"):
+        fail(f"the monitored graph engine's launches a step {eng.step_launches} (the "
+             f"unmonitored engine's {ref.step_launches}); wrappers: launched {mon_launched}, "
+             f"captured {mon_captured}")
+    if folds_before_reader != 0 or json.dumps(snap, sort_keys=True) != \
+            json.dumps(twin_snap, sort_keys=True) or counted != want_counted or \
+            calls.total() != sum(want_counted.values()):
+        fail(f"the monitored graph engine: {folds_before_reader} folds before a reader, "
+             f"calls by site {counted} (want {want_counted}), or its snapshot != its eager "
+             f"twin's")
+    try:
+        with calibrate():
+            engine(None)
+    except RuntimeError as e:
+        if "trace hook" not in str(e):
+            raise
+    else:
+        fail("a graph engine was captured under a calibration hook")
+    make = lambda: [Request(uid=i, prompt=p, max_new=GEN) for i, p in enumerate(first)]
+    traced = {"monitored": traced_steps(torch, eng, make, TRACED_STEPS),
+              "bare": traced_steps(torch, ref, make, TRACED_STEPS)}
+    for name, tr in traced.items():
+        if tr is not None and tr["kernels"]["fdp_gemm"] != \
+                TRACED_STEPS * eng.step_launches["fdp_gemm"]:
+            fail(f"{TRACED_STEPS} profiled replays of the {name} graph engine hold "
+                 f"{tr['kernels']['fdp_gemm']} dense kernel events, not "
+                 f"{eng.step_launches['fdp_gemm']} a step")
+    overflow = mon.registry.counter("repro_overflow_events_total", "", ("site", "source"))
+    before = {s: i["status"] for s, i in mon.statuses().items()}
+    worst = mon.worst_status()
+    events0, counted0 = mon.overflow_events(), overflow.total()
+    site = next(s for s in sorted(envelope["sites"])
+                if searched_policy.lookup(s).mode == "pallas")
+    D.gemm(torch.full((8, 16), 2.0 ** 70, device=dev),
+           torch.full((16, 8), 2.0 ** 70, device=dev), site=site, policy=searched_policy)
+    after = {s: i["status"] for s, i in mon.statuses().items()}
+    mon.uninstall()
+    folds = mon.folds
+    changed = {s for s in after if after[s] != before.get(s)}
+    if changed != {site} or after[site] != "violated" or overflow.total() <= counted0:
+        fail(f"the injection at {site}: statuses changed at {changed} ({after.get(site)}), "
+             f"repro_overflow_events_total {counted0} -> {overflow.total()}")
+    step_launches = dict(eng.step_launches)
+    del eng, ref
+    med = lambda secs: sorted(secs)[len(secs) // 2]
+    tok_s = {name: n_tok / med(secs) for name, secs in (
+        ("monitored graph", secs_mon_graph), ("bare graph", secs_bare_graph),
+        ("monitored eager", secs_mon_eager), ("bare eager", secs_bare_eager))}
+    by_status = collections.Counter(before.values())
+    off = {s: st for s, st in sorted(before.items()) if st != "inside"}
+    log(f"(b) monitoring(searched) inside the captured graph: a ContinuousBatcher (4 slots, "
+        f"max_len 40) captured once under the monitor, {step_launches} launches a step == "
+        f"the unmonitored engine's (wrappers: {mon_launched} in the two warm-up calls, "
+        f"{mon_captured} captured); tokens == the unmonitored graph engine's; "
+        f"{folds_before_reader} folds over 3 runs until the first reader; its snapshot == "
+        f"an eager twin's under a second monitor, field for field; "
+        f"repro_monitor_calls_total == dispatches a step x {replays} replays at each of "
+        f"{len(counted)} sites; a ScoreEngine captured under the monitor "
+        f"({score_captured} a call): scores and snapshot == its eager twin's; a calibration "
+        f"hook refused the capture")
+    for name, tr in traced.items():
+        log(f"    {TRACED_STEPS} profiled replays of the {name} graph engine: " + (
+            "not measured (no device events)" if tr is None else
+            f"{tr['device_events'] / TRACED_STEPS:.1f} device events a step, "
+            f"{tr['kernels']['fdp_gemm']} dense kernel events, busy "
+            f"{tr['device_busy_s']:.4f} s, idle {100 * tr['idle_share']:.1f}%; top device "
+            f"time (name, events, s): {tr['top']}"))
+    log(f"    before the injection worst {worst}, sites by status {dict(by_status)}, not "
+        f"inside: {off or 'none'}; overflow events {events0}; one eager dispatch at "
+        f"{site!r} with operands at 2^70 flipped exactly it to violated, "
+        f"repro_overflow_events_total {counted0:.0f} -> {overflow.total():.0f}; {folds} folds")
+    log(f"    {n_tok} tokens, 4 requests, tok/s median of 3 (one bare eager run; seconds of "
+        f"each run): " + "; ".join(
+        f"{name} {v:.2f} ({', '.join(f'{x:.3f}' for x in secs)})" for (name, v), secs in zip(
+            tok_s.items(), (secs_mon_graph, secs_bare_graph, secs_mon_eager,
+                            secs_bare_eager)))
+        + f"; monitored graph / bare graph {tok_s['monitored graph'] / tok_s['bare graph']:.3f}"
+        f", / monitored eager {tok_s['monitored graph'] / tok_s['monitored eager']:.2f}x")
+    monitor = {"site": site, "worst_before": worst, "statuses_before": dict(by_status),
+               "not_inside_before": off, "overflow_events_before": events0,
+               "folds": folds, "folds_before_reader": folds_before_reader,
+               "step_launches": step_launches, "launched": mon_launched,
+               "captured": mon_captured, "replays": replays,
+               "score_step_launches": score_captured, "traced": traced, "tok_s": tok_s,
+               "seconds": {"monitored graph": secs_mon_graph, "bare graph": secs_bare_graph,
+                           "monitored eager": secs_mon_eager,
+                           "bare eager": secs_bare_eager}}
+    return monitor
 
 
 def schedules_phase(torch, dev, cfg, params, phase3_tokens, phase18_tokens, make_requests,
@@ -2468,29 +2599,48 @@ def main() -> None:
     rstep = make_train_step(rcfg, ropt, remat="none", numerics_policy=FDP91_KERNEL)
     rdata = SyntheticLM(rcfg.vocab_size, 16, 4, seed=0, device=dev)
     injected = []
+    from repro_torch.obs import default_registry, recorder
 
     def injector(step):
-        if step == 2 and not injected:
+        if step == 3 and not injected:
             injected.append(step)
-            raise InjectedFailure("injected failure at step 2")
+            raise InjectedFailure("injected failure at step 3")
 
-    runs = {}
+    def obs_counts():
+        """(step-time observations, restores, ``train.step`` spans' steps)"""
+        m = default_registry().snapshot()["metrics"]
+        hist = m.get("repro_train_step_seconds", {"values": []})["values"]
+        return (sum(v["count"] for v in hist),
+                default_registry().counter("repro_train_restarts_total", "").value(),
+                [e["args"]["step"] for e in recorder().events() if e["name"] == "train.step"])
+
+    runs, obs = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, inj in (("injected", injector), ("clean", None)):
+            recorder().clear()
+            before = obs_counts()
             trainer = Trainer(rcfg, ropt, lambda s: rdata.batch(s).as_dict(), rstep,
                               os.path.join(tmp, name), save_every=2, failure_injector=inj,
                               device=dev)
             runs[name] = (trainer.run(5)[0], trainer.restarts)
-    if injected != [2] or runs["injected"][1] != 1:
+            after = obs_counts()
+            obs[name] = (after[0] - before[0], after[1] - before[1], after[2])
+    if injected != [3] or runs["injected"][1] != 1:
         fail(f"the injected run restarted {runs['injected'][1]} times (want 1)")
     if runs["clean"][1] != 0:
         fail(f"a run without an injected failure restarted {runs['clean'][1]} times")
     for a, b in zip(runs["injected"][0].parameters(), runs["clean"][0].parameters()):
         if not torch.equal(a, b):
             fail("the Trainer that recovered from the failure ended on other parameters")
+    # steps 0-2, the failure at 3, the restore to the step-2 checkpoint, 2-4
+    want_obs = {"injected": (6, 1.0, [0, 1, 2, 2, 3, 4]), "clean": (5, 0.0, [0, 1, 2, 3, 4])}
+    if obs != want_obs:
+        fail(f"the Trainer's obs (step-time observations, restores, train.step spans' "
+             f"steps) {obs} != {want_obs}")
     log(f"Trainer ({rcfg.name}, {FDP91_KERNEL.name}, checkpoints every 2 steps): an "
-        f"injected failure at step 2, 1 restart, final parameters torch.equal to a run "
-        f"without the failure (0 restarts)")
+        f"injected failure at step 3, 1 restart, final parameters torch.equal to a run "
+        f"without the failure (0 restarts); repro_train_step_seconds observations, "
+        f"repro_train_restarts_total and train.step spans' steps: {obs}")
     del runs
 
     # -- 12. the seed-order kernel (impl="loop") against plain and vector ------
@@ -3199,6 +3349,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     routed_launches = routed["routed"]["launched"].get("fdp_gemm", 0)
     routed_replays = routed["routed"]["replays_traced"]
+    monitored_launches = routed["monitor"]["launched"].get("fdp_gemm", 0)
+    monitored_replays = routed["monitor"]["traced"]["monitored"]
 
     # -- 20. autotune and the schedule zoo ------------------------------------
     phase("20")
@@ -3224,6 +3376,7 @@ def main() -> None:
                      + train["launches"]["fdp_gemm"] + launches_k + launches_l + launches_d
                      + tailored_launches + workloads["launches"]["total"]
                      + sum(engine_launches["fdp_gemm"].values()) + routed_launches
+                     + monitored_launches
                      + autotune_launches_total + sched["dense_launches_on_persisted"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
@@ -3236,6 +3389,8 @@ def main() -> None:
                                  workloads["launches"]["total"],
                              **engine_launches["fdp_gemm"],
                              "routed tier (phase 19)": routed_launches,
+                             "monitored graph engine, warm-up (phase 19 b)":
+                                 monitored_launches,
                              "autotuner's candidates (phases 16, 20)": autotune_launches_total,
                              "serve and graph engine on the cuda zoo (phase 20)":
                                  sched["dense_launches_on_persisted"]},
@@ -3243,7 +3398,11 @@ def main() -> None:
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
             else {"replays": routed_replays["steps"],
-                  "kernel_events": routed_replays["kernels"]["fdp_gemm"]}},
+                  "kernel_events": routed_replays["kernels"]["fdp_gemm"]},
+            "qwen3-0.6b monitored graph engine, searched (phase 19 b)":
+                None if monitored_replays is None
+                else {"replays": monitored_replays["steps"],
+                      "kernel_events": monitored_replays["kernels"]["fdp_gemm"]}},
         "max_abs_err": max_err,
         "ms": lm["ms"], "plain_ms": lm["plain_ms"], "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"], "library_ms": None,

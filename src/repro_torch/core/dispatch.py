@@ -311,6 +311,15 @@ def _note_site(key: str) -> None:
 # CUDA backward, autograd's device thread); not during a checkpointed
 # region's recompute. ``_TRACE_HOOK`` is None-checked first, so that the
 # path costs nothing without a hook.
+#
+# A hook that a CUDA-graph capture may record sets ``capturable = True`` and
+# offers two context managers, which ``launch.batching.capture`` enters:
+# ``warmup()`` around each eager warm-up call of the body (the hook records
+# nothing there) and ``capture()``, entered before the graph's capture
+# begins and left after it ends, yielding a record whose ``seal()`` the
+# capture calls inside the graph, after the body. Every other hook (the
+# calibration slot's too) refuses a capture: it would run at capture only,
+# never at replay.
 _TRACE_HOOK = None          # composed view over the slots below
 _PRIMARY_HOOK = None        # the calibration slot (set_trace_hook)
 _EXTRA_HOOKS: list = []     # additive observers (add_trace_hook)
@@ -318,7 +327,7 @@ _EXTRA_HOOKS: list = []     # additive observers (add_trace_hook)
 
 def _recompose_hooks() -> None:
     global _TRACE_HOOK
-    hooks = ([_PRIMARY_HOOK] if _PRIMARY_HOOK is not None else []) + list(_EXTRA_HOOKS)
+    hooks = trace_hooks()
     if not hooks:
         _TRACE_HOOK = None
     elif len(hooks) == 1:
@@ -354,6 +363,11 @@ def add_trace_hook(hook):
             pass
         _recompose_hooks()
     return _remove
+
+
+def trace_hooks() -> tuple:
+    """The installed hooks, the primary slot first."""
+    return ((_PRIMARY_HOOK,) if _PRIMARY_HOOK is not None else ()) + tuple(_EXTRA_HOOKS)
 
 
 def _active_hook():

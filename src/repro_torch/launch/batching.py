@@ -34,6 +34,10 @@ record one step's kernel launches (the capture's ``captured``) and FDP
 dispatches at capture; ``launches()`` derives the replays' launches from
 them, ``step_launches`` times ``replays``, and writes no count.
 
+A numerics monitor installed at capture (``obs.monitor``) records into
+the graph: its reductions are captured with the step, and every replay
+adds one call to its rows, with no read back to the host.
+
 ``graph=None`` means a graph on CUDA and eager steps on the CPU.
 ``graph=True`` on the CPU raises; a capture that fails raises, and never
 falls back to eager steps. ``graph=False`` on CUDA runs eager steps only
@@ -77,30 +81,41 @@ def capture(body: Callable[[], torch.Tensor], policy_ctx, device, *,
     first-call cache fills, none of which may run inside a capture), then
     ``before()`` (the batcher zeroes its KV and rewinds its cursor), then
     the capture. Returns (graph, body's output tensor, kernel launches
-    recorded by the capture, FDP dispatches at capture by site key). A
-    dispatch trace hook installed raises: it would run at capture only,
-    never at replay."""
-    if dispatch._TRACE_HOOK is not None:
-        raise RuntimeError("a dispatch trace hook is installed: a captured step "
-                           "would call it at capture only, never at replay")
+    recorded by the capture, FDP dispatches at capture by site key, the
+    records of the capturable trace hooks). The hooks are told of each
+    warm-up call and of the capture (``core.dispatch``, "Trace hooks"):
+    the numerics monitor records nothing in the warm-up and captures its
+    reductions with the body. Any other trace hook installed raises: it
+    would run at capture only, never at replay."""
+    hooks = dispatch.trace_hooks()
+    if not all(getattr(h, "capturable", False) for h in hooks):
+        raise RuntimeError("a dispatch trace hook that cannot be captured is installed: "
+                           "a captured step would call it at capture only, never at replay")
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
     with policy_ctx(), torch.cuda.stream(side):
         for _ in range(2):
-            body()
+            with contextlib.ExitStack() as stack:
+                for h in hooks:
+                    stack.enter_context(h.warmup())
+                body()
     torch.cuda.current_stream(device).wait_stream(side)
     if before is not None:
         before()
     captured = {n: w.captured for n, w in _k.KERNELS.items()}
     calls = dispatch.site_calls()
     graph = torch.cuda.CUDAGraph()
-    with policy_ctx(), torch.cuda.graph(graph):
-        out = body()
+    with contextlib.ExitStack() as stack:
+        records = [stack.enter_context(h.capture()) for h in hooks]
+        with policy_ctx(), torch.cuda.graph(graph):
+            out = body()
+            for rec in records:
+                rec.seal()
     launches = {n: w.captured - captured[n] for n, w in _k.KERNELS.items()
                 if w.captured != captured[n]}
     dispatches = {s: c - calls.get(s, 0) for s, c in dispatch.site_calls().items()
                   if c != calls.get(s, 0)}
-    return graph, out, launches, dispatches
+    return graph, out, launches, dispatches, records
 
 
 class CacheExhausted(RuntimeError):
@@ -185,6 +200,7 @@ class ContinuousBatcher:
         self._start_host = torch.zeros(n_slots, dtype=torch.int64, pin_memory=pin)
         self._graph = None
         self._next = None                  # the graph's argmax ids (n_slots,)
+        self._records: list = []           # the capturable hooks' records
         # captured exactly once per graph engine — the regression guard for
         # "the policy binds at capture"
         self.capture_count = 0
@@ -217,8 +233,9 @@ class ContinuousBatcher:
     def _capture(self) -> None:
         if self._graph is not None:
             raise RuntimeError("the decode step is already captured")
-        self._graph, self._next, self.step_launches, self.step_dispatches = capture(
-            self._step_body, self._policy_ctx, self.device, before=self._zero_state)
+        (self._graph, self._next, self.step_launches, self.step_dispatches,
+         self._records) = capture(self._step_body, self._policy_ctx, self.device,
+                                  before=self._zero_state)
         self.capture_count += 1
 
     def launches(self) -> dict:

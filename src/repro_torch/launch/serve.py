@@ -27,9 +27,10 @@ per-class routing/latency stats print at the end.
 
 Observability: ``--monitor`` serves under a live calibration-envelope
 monitor (``obs.monitor``; the envelope of ``--precision-plan`` or, routed,
-of the architecture's zoo plan). A trace hook sees no CUDA-graph replay, so
-under ``--monitor`` the continuous and routed engines are built with
-``graph=False`` and run eager steps (the simple engine runs eager anyway).
+of the architecture's zoo plan). The continuous and routed engines are
+captured with the monitor's reductions inside their CUDA graphs, so every
+replay is recorded (on the CPU they run eager steps, as without it; the
+simple engine runs eager anyway).
 ``--metrics-dump``, ``--metrics-port``/``--metrics-hold`` and
 ``--trace-out`` write the registry, serve it over HTTP, and export the span
 timeline.
@@ -194,9 +195,9 @@ def main(argv=None):
             envelope = _zoo_envelope(args.plans, base_arch)
         mon_ctx = monitoring(envelope=envelope)
         if args.engine != "simple":
-            print(f"[serve] --monitor: the {args.engine} engine is built with graph=False "
-                  f"(a trace hook sees no CUDA-graph replay)")
-    graph = False if monitored else None
+            print(f"[serve] --monitor: the {args.engine} engine is captured with the "
+                  f"monitor's reductions inside (a CUDA graph on the card, eager steps "
+                  f"on the CPU)")
 
     t0 = time.perf_counter()
     stack = contextlib.ExitStack()
@@ -206,7 +207,7 @@ def main(argv=None):
                                          ServeRequest)
         router = PlanRouter.from_manifest(args.plans, arch=base_arch)
         buckets = args.buckets or f"{args.batch}x{args.prompt_len + args.gen + 2}"
-        pool = BucketedEnginePool(cfg, params, buckets, graph=graph)
+        pool = BucketedEnginePool(cfg, params, buckets)
         front = RoutedFrontend(pool, router)
         comps = [front.submit(ServeRequest(uid=i, prompt=row.tolist(), max_new=args.gen,
                                            workload=args.workload))
@@ -226,7 +227,7 @@ def main(argv=None):
         from repro_torch.launch.batching import ContinuousBatcher, Request
         eng = ContinuousBatcher(cfg, params, n_slots=args.batch,
                                 max_len=args.prompt_len + 2 * args.gen + 2,
-                                warmup=policy, graph=graph)
+                                warmup=policy)
         reqs = [Request(uid=i, prompt=row.tolist(), max_new=args.gen)
                 for i, row in enumerate(prompts)]
         for r in reqs:

@@ -25,30 +25,58 @@ then compares the fold against the plan's recorded calibration envelope
                  makes this a loud, attributed event.
 
 Device cost: the hook reads nothing back to the host. Per dispatched GEMM it
-computes the reference's device scalars (|a| max, |b| max, |out| max, and
-the nonzero |a| and |b| min only where the site's envelope has an ``lsb``;
-all-finite is read from |out| max, through which a NaN or an infinity
-propagates), four kernels a dispatch on a float site, and queues them
-with the call's static shape. The queue is folded on the
-host, by the reference's ``_record``, in one device-to-host copy: whenever a
-reader asks (``status``, ``statuses``, ``worst_status``,
-``overflow_events``, ``snapshot``), when the queue reaches ``FOLD_AT``
-entries, and at ``uninstall``/``__exit__`` (the reference's
-``jax.effects_barrier()``). A hook runs at dispatch on the host, so it sees
-no CUDA-graph replay: a monitored engine runs eager steps (``graph=False``),
-and a capture refuses while a hook is installed.
+computes the reference's device scalars: |a| max, |b| max, |out| max, and
+the nonzero |a| and |b| min only where the site's envelope has an ``lsb``.
+All-finite is read from |out| max, through which a NaN or an infinity
+propagates. Where they go depends on how the step runs:
+
+* **Eager**: they are queued, with the call's static shape and a stamp of
+  the monitor's device clock, and folded on the host by the reference's
+  ``_record``, in one device-to-host copy per device. The fold happens
+  whenever a reader asks (``status``, ``statuses``, ``worst_status``,
+  ``overflow_events``, ``snapshot``), when the queue reaches ``FOLD_AT``
+  entries, and at ``uninstall``/``__exit__`` (the reference's
+  ``jax.effects_barrier()``).
+* **In a CUDA graph**: the monitor is a capturable hook
+  (``core.dispatch``, "Trace hooks"). ``launch.batching.capture`` tells it
+  of each eager warm-up call, where it records only the dispatches' static
+  shapes, and of the capture. Before the capture it allocates one
+  ``(n, 10)`` float64 block of rows, one row for each of the warm-up's n
+  dispatches. The k-th dispatch of the captured body computes its
+  scalars for the k-th row. After the body, ``CapturedRecord.seal``
+  captures one update of every row, in place: the running maxima and
+  minima, the calls, the calls whose own msb requirement exceeds the
+  site's capacity, the calls with a non-finite |out| max, the largest
+  cancellation ratio (float64) and the clock's stamp. Every replay thus
+  adds one call's record to each row, and reads nothing back to the host.
+  A fold reads the rows with the queue (still one copy per device) and
+  folds each row's calls since the last fold, in stamp order, with the
+  stats, counters, gauges and alert sinks that ``_record`` would have left
+  after the same calls one by one. The sites' values are the same;
+  ``msb_capacity`` is the last-stamped call's, as in the eager order. An
+  escalation that passes through ``near-edge`` to ``violated`` within one
+  row's fold alerts once, at ``violated``.
+
+This is the reference's "compile once, record every execution": its
+monitor stages reductions and one ``jax.debug.callback`` at trace time.
+As there, a step captured before ``install()`` stays unmonitored, and a
+record of a freed engine stays in the monitor until it has been folded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import math
 import threading
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.device import capturing
 from repro_torch.numerics.trace import _as_float, cfg_capacity
 from repro_torch.obs import registry as _registry
 
@@ -66,11 +94,25 @@ STATUS_CODE = {UNMONITORED: -1, INSIDE: 0, NEAR_EDGE: 1, VIOLATED: 2}
 # queued dispatches past which the hook folds by itself (one copy)
 FOLD_AT = 4096
 
+# The columns of a captured dispatch's row (float64): the running maxima of
+# |a|, |b| and |out| (0 until a positive finite value), the running minima
+# of the nonzero |a| and |b| (inf until one), the calls, the wrap and
+# non-finite events among them, the largest cancellation ratio (0 until a
+# finite positive one) and the clock's stamp of the last call. A
+# dispatch's scalars come in the order of the first five.
+A_MAX, B_MAX, O_MAX, A_MIN, B_MIN, CALLS, WRAPS, NONFINITE, RATIO, STAMP = range(10)
+ROW_INIT = (0.0, 0.0, 0.0, math.inf, math.inf, 0.0, 0.0, 0.0, 0.0, 0.0)
+
 
 def _floor_log2(v: float) -> Optional[int]:
     if not (v > 0.0) or not math.isfinite(v):
         return None
     return math.frexp(v)[1] - 1
+
+
+def _growth(k: int) -> int:
+    """Carry bits a sum of ``k`` products may need."""
+    return max(1, math.ceil(math.log2(max(k, 2))))
 
 
 class SiteStats:
@@ -108,8 +150,7 @@ class SiteStats:
         p = self.prod_exp_max
         if p is None:
             return None
-        growth = max(1, math.ceil(math.log2(max(self.max_k, 2))))
-        return p + growth + 1
+        return p + _growth(self.max_k) + 1
 
     def to_dict(self) -> dict:
         return {"calls": self.calls, "macs": self.macs, "max_k": self.max_k,
@@ -121,6 +162,14 @@ class SiteStats:
                 "cancellation_bits": round(self.cancel_bits_max, 2),
                 "wrap_events": self.wrap_events,
                 "nonfinite_events": self.nonfinite_events}
+
+
+def _floor_log2_t(x: torch.Tensor) -> tuple:
+    """``_floor_log2`` on the device, elementwise: (floor(log2 x), valid),
+    valid where the host's is not None. The values are widened to float64
+    first, where a float32 subnormal is a normal number."""
+    x = x.double()
+    return torch.frexp(x)[1] - 1, (x > 0) & torch.isfinite(x)
 
 
 def _exp_outside(lo, hi, env_range, grace: int, check_lo: bool) -> bool:
@@ -157,6 +206,121 @@ def _absmin_nz(x: torch.Tensor) -> torch.Tensor:
     return torch.where(ax > 0, ax, math.inf).min()
 
 
+def _reduce(cfg, a, b, out, need_lo: bool) -> list:
+    """|a| max, |b| max, |out| max (and the nonzero |a| and |b| min where
+    ``need_lo``) as float32 scalars, in the order of a row's columns."""
+    af = _as_float(cfg.fmt, a)                       # posit carriers decode
+    bf = _as_float(cfg.fmt, b)
+    vals = [_absmax(af), _absmax(bf), _absmax(out)]
+    if need_lo:
+        vals += [_absmin_nz(af), _absmin_nz(bf)]
+    return vals
+
+
+class _Call(NamedTuple):
+    """A dispatch's static shape, as the monitor records it."""
+    site: str
+    batch: int
+    m: int
+    n: int
+    k: int
+    msb_cap: Optional[int]
+    need_lo: bool
+    device: torch.device
+
+
+class _Rows:
+    """The monitor's hold on a capture's rows: their tensor (kept alive
+    after the record is freed, until folded), the calls they record, the
+    counts already folded, and a weak reference to the record."""
+
+    def __init__(self, record, rows, calls):
+        self.record, self.rows, self.calls = record, rows, calls
+        self.seen = [(0, 0, 0)] * len(calls)
+
+
+class CapturedRecord:
+    """The rows of one captured body (module docstring): built from the
+    warm-up's dispatches outside the capture; while ``recording()``, the
+    k-th dispatch's scalars are kept as row k's, and ``seal()`` folds them
+    into ``rows`` in place. Under a capture both are recorded (the scalars'
+    tensors, allocated in the graph's pool, are held here for the graph's
+    life), so every replay adds one call to every row; run eagerly (the CPU
+    tests), each recording and seal adds one."""
+
+    def __init__(self, monitor: NumericsMonitor, calls: list):
+        self.calls, self.sealed, self._next = calls, False, 0
+        self.vals: list = [None] * len(calls)
+        self._tls = monitor._tls
+        if not calls:
+            return
+        dev = calls[0].device
+        n = len(calls)
+        f64 = dict(dtype=torch.float64, device=dev)
+        with torch.inference_mode(False):
+            # the two minima of a row whose envelope has no lsb: none
+            self.zero = torch.zeros((), dtype=torch.float32, device=dev)
+            self.rows = torch.tensor([ROW_INIT] * n, dtype=torch.float64).to(dev)
+            self.kk = torch.tensor([float(max(c.k, 1)) for c in calls], **f64)
+            # a call wraps where floor_log2(|a| max) + floor_log2(|b| max)
+            # exceeds this (its msb requirement exceeds the capacity)
+            self.wrap_at = torch.tensor(
+                [math.inf if c.msb_cap is None else float(c.msb_cap - 2 - _growth(c.k))
+                 for c in calls], **f64)
+            self.steps = torch.arange(1, n + 1, **f64)
+            self.empty = torch.tensor(ROW_INIT[:5], **f64)
+            self.clock = monitor._clock(dev)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """The monitor's dispatches go to this record, row by row."""
+        self._next, self.sealed = 0, False
+        self._tls.active = self
+        try:
+            yield self
+        finally:
+            self._tls.active = None
+
+    def dispatch(self, call, cfg, a, b, out) -> None:
+        k = self._next
+        if k >= len(self.calls) or call != self.calls[k]:
+            want = self.calls[k] if k < len(self.calls) else "nothing"
+            raise RuntimeError(f"dispatch {k} of the captured body is {call}; its warm-up "
+                               f"call dispatched {want}")
+        with torch.no_grad():
+            vals = _reduce(cfg, a, b, out, call.need_lo)
+        self.vals[k] = vals + [self.zero] * (5 - len(vals))
+        self._next = k + 1
+
+    def seal(self) -> None:
+        """One call of every row: fold the dispatches' scalars into the rows
+        in place."""
+        if self._next != len(self.calls):
+            raise RuntimeError(f"the captured body dispatched {self._next} GEMMs; its "
+                               f"warm-up call dispatched {len(self.calls)}")
+        self.sealed = True
+        if not self.calls:
+            return
+        with torch.no_grad():
+            s = torch.stack([v for row in self.vals for v in row]).view(-1, 5).double()
+            exp, valid = _floor_log2_t(s)
+            wrap = valid[:, A_MAX] & valid[:, B_MAX] & (
+                exp[:, A_MAX] + exp[:, B_MAX] > self.wrap_at)
+            ratio = s[:, A_MAX] * s[:, B_MAX] * self.kk / s[:, O_MAX]
+            ratio_ok = (s[:, :3] > 0).all(1) & (ratio > 0) & torch.isfinite(ratio)
+            nonfinite = ~torch.isfinite(s[:, O_MAX])
+            seen = torch.where(valid, s, self.empty)
+            r = self.rows
+            self.rows.copy_(torch.cat((
+                torch.maximum(r[:, :3], seen[:, :3]),
+                torch.minimum(r[:, 3:5], seen[:, 3:5]),
+                r[:, CALLS:RATIO] + torch.stack((torch.ones_like(ratio), wrap.double(),
+                                                 nonfinite.double()), 1),
+                torch.maximum(r[:, RATIO], torch.where(ratio_ok, ratio, 0.0))[:, None],
+                (self.clock + self.steps)[:, None]), 1))
+            self.clock.add_(len(self.calls))
+
+
 class NumericsMonitor:
     """Per-site live monitor + envelope comparator.
 
@@ -169,7 +333,11 @@ class NumericsMonitor:
     Use as a context manager, or ``install()``/``uninstall()`` for
     long-running servers. Monitors and a concurrent ``calibrate()``
     co-exist: installation goes through ``dispatch.add_trace_hook``.
-    ``folds`` counts the device-to-host copies the monitor made.
+    ``folds`` counts the device-to-host copies the monitor made. A step
+    captured while the monitor is installed records into it at every
+    replay, even after ``uninstall``; one captured before ``install`` stays
+    unmonitored, as a function the reference compiled before its monitor
+    was installed.
     """
 
     def __init__(self, envelope: Optional[dict] = None, *,
@@ -180,6 +348,9 @@ class NumericsMonitor:
         self._stats: dict = {}
         self._alerted: dict = {}
         self._queue: list = []
+        self._captured: list = []        # _Rows of the captures, until folded and freed
+        self._clocks: dict = {}
+        self._tls = threading.local()
         self.folds = 0
         self.envelope = dict((envelope or {}).get("sites", envelope or {}))
         self.margin_bits = margin_bits
@@ -224,29 +395,39 @@ class NumericsMonitor:
     # -- recording ---------------------------------------------------------
     def _record(self, site, batch, m, n, k, msb_cap,
                 a_max, a_min, b_max, b_min, o_max, finite):
+        """One call, as the reference's ``_record``."""
         a_max, a_min = float(a_max), float(a_min)
         b_max, b_min = float(b_max), float(b_min)
         o_max, finite = float(o_max), bool(finite)
 
-        ea_hi, ea_lo = _floor_log2(a_max), _floor_log2(a_min)
-        eb_hi, eb_lo = _floor_log2(b_max), _floor_log2(b_min)
-        eo_hi = _floor_log2(o_max)
-        growth = max(1, math.ceil(math.log2(max(k, 2))))
+        ea_hi, eb_hi = _floor_log2(a_max), _floor_log2(b_max)
         msb_req = (None if ea_hi is None or eb_hi is None
-                   else ea_hi + eb_hi + 1 + growth + 1)
+                   else ea_hi + eb_hi + 1 + _growth(k) + 1)
         wrapped = msb_cap is not None and msb_req is not None and msb_req > msb_cap
-        cancel = 0.0
+        ratio = 0.0
         if o_max > 0.0 and a_max > 0.0 and b_max > 0.0:
             ratio = a_max * b_max * max(k, 1) / o_max
-            if ratio > 0.0 and math.isfinite(ratio):   # inf/inf -> nan guard
-                cancel = max(0.0, math.log2(ratio))
+        self._fold_calls(site, 1, batch * m * n * k, k, msb_cap,
+                         (a_max, a_min, b_max, b_min, o_max), ratio, int(wrapped),
+                         int(not finite))
+
+    def _fold_calls(self, site, calls, macs, k, msb_cap, values, ratio, wraps, nonfinite):
+        """Fold ``calls`` calls of one site: ``values`` are the largest |a|,
+        smallest nonzero |a|, largest |b|, smallest nonzero |b| and largest
+        |out| over them (their exponents fold as the reference's per-call
+        ones, ``_floor_log2`` being monotone), ``ratio`` their largest
+        cancellation ratio."""
+        ea_hi, ea_lo, eb_hi, eb_lo, eo_hi = map(_floor_log2, values)
+        cancel = 0.0
+        if ratio > 0.0 and math.isfinite(ratio):        # inf/inf -> nan guard
+            cancel = max(0.0, math.log2(ratio))
 
         with self._lock:
             st = self._stats.get(site)
             if st is None:
                 st = self._stats[site] = SiteStats(site)
-            st.calls += 1
-            st.macs += batch * m * n * k
+            st.calls += calls
+            st.macs += macs
             st.max_k = max(st.max_k, k)
             st.msb_capacity = msb_cap
             for attr, v, hi in (("a_exp_max", ea_hi, True), ("a_exp_min", ea_lo, False),
@@ -257,78 +438,183 @@ class NumericsMonitor:
                 cur = getattr(st, attr)
                 setattr(st, attr, v if cur is None else (max(cur, v) if hi else min(cur, v)))
             st.cancel_bits_max = max(st.cancel_bits_max, cancel)
-            if wrapped:
-                st.wrap_events += 1
-            if not finite:
-                st.nonfinite_events += 1
-        self._calls.inc(site=site)
-        self._macs.inc(batch * m * n * k, site=site)
-        if wrapped:
-            self._overflow.inc(site=site, source="gemm_wrap")
-        if not finite:
-            self._overflow.inc(site=site, source="gemm_nonfinite")
+            st.wrap_events += wraps
+            st.nonfinite_events += nonfinite
+        self._calls.inc(calls, site=site)
+        self._macs.inc(macs, site=site)
+        if wraps:
+            self._overflow.inc(wraps, site=site, source="gemm_wrap")
+        if nonfinite:
+            self._overflow.inc(nonfinite, site=site, source="gemm_nonfinite")
         info = self._status(site)
         self._status_g.set(STATUS_CODE[info["status"]], site=site)
         self._maybe_alert(site, info)
 
-    def hook(self, site, cfg, a, b, out):
-        """Dispatch trace hook: three (or five) device scalars a call, queued
-        with the call's static shape; no host read (module docstring)."""
-        if a.ndim < 2 or b.ndim < 2:
-            return
-        m, k = a.shape[-2], a.shape[-1]
-        n = b.shape[-1]
-        batch = _batch(a.shape[:-2], b.shape[:-2])
-        msb_cap, _ = cfg_capacity(cfg)
+    def _call(self, site, cfg, a, b) -> "_Call":
+        env = self._site_envelope(site)
         # Low-side tracking (smallest nonzero magnitude) only matters on
         # fixed-point sites — a finite envelope lsb. Native float sites skip
         # those two reductions.
-        env = self._site_envelope(site)
-        need_lo = env is not None and env.get("lsb") is not None
+        return _Call(site, _batch(a.shape[:-2], b.shape[:-2]), a.shape[-2], b.shape[-1],
+                     a.shape[-1], cfg_capacity(cfg)[0],
+                     env is not None and env.get("lsb") is not None, a.device)
+
+    def hook(self, site, cfg, a, b, out):
+        """Dispatch trace hook: three (or five) device scalars a call, and
+        no host read (module docstring). In a warm-up call it records the
+        call's static shape only; in a capture, the scalars go to the
+        call's row of the capture's record; else they are queued with a
+        stamp of the clock."""
+        if a.ndim < 2 or b.ndim < 2:
+            return
+        call = self._call(site, cfg, a, b)
+        active = getattr(self._tls, "active", None)
+        if isinstance(active, list):                 # a warm-up call
+            active.append(call)
+            return
+        if active is not None:
+            active.dispatch(call, cfg, a, b, out)
+            return
+        if capturing():
+            raise RuntimeError(
+                "a monitored GEMM dispatched under a CUDA-graph capture that did not "
+                "tell the monitor: its scalars would be garbage (capture through "
+                "launch.batching.capture)")
         with torch.no_grad():
-            af = _as_float(cfg.fmt, a)               # posit carriers decode
-            bf = _as_float(cfg.fmt, b)
-            vals = [_absmax(af), _absmax(bf), _absmax(out)]
-            if need_lo:
-                vals += [_absmin_nz(af), _absmin_nz(bf)]
-            vals = torch.stack(vals)
+            vals = torch.stack(_reduce(cfg, a, b, out, call.need_lo))
+            # the clock's count of replayed captured calls stamps the call:
+            # it follows every row stamped up to that count (0 before any
+            # capture on the device, with no kernel)
+            clock = self._clocks.get(a.device)
+            stamp = 0.0 if clock is None else clock.clone()
         with self._lock:
-            self._queue.append((site, batch, m, n, k, msb_cap, vals))
+            self._queue.append((call, vals, stamp))
             full = len(self._queue) >= FOLD_AT
         if full:
             self.fold()
 
+    __call__ = hook
+    capturable = True
+
+    def _clock(self, device) -> torch.Tensor:
+        """The monitor's device clock on ``device`` (a 0-d float64 count of
+        the captured calls replayed there): a replayed row's stamp is its
+        count, a queued call's the count so far, so a fold knows their
+        order."""
+        with self._lock:
+            clock = self._clocks.get(device)
+            if clock is None:
+                with torch.inference_mode(False):
+                    clock = self._clocks[device] = torch.zeros(
+                        (), dtype=torch.float64, device=device)
+            return clock
+
+    # -- capture (launch.batching.capture) ----------------------------------
+    @contextlib.contextmanager
+    def warmup(self):
+        """Around one eager warm-up call of a body about to be captured: the
+        dispatches are recorded by their static shape only, for the
+        capture's rows."""
+        calls: list = []
+        self._tls.active = calls
+        try:
+            yield
+        finally:
+            self._tls.active = None
+        self._tls.warm = calls
+
+    @contextlib.contextmanager
+    def capture(self):
+        """Entered before a graph's capture begins and left after it ends:
+        yields the ``CapturedRecord`` of the last warm-up call's dispatches,
+        whose ``seal()`` the capture calls after the body. The record's rows
+        join the monitor's folds once the capture has succeeded. A fold on
+        another thread waits for the capture to end: its copy to the host
+        would break the capture."""
+        calls = getattr(self._tls, "warm", None)
+        self._tls.warm = None
+        if calls is None:
+            raise RuntimeError("a monitored capture needs a warm-up call first: the "
+                               "monitor sizes its rows from its dispatches")
+        with self._fold_lock:
+            rec = CapturedRecord(self, calls)
+            with rec.recording():
+                yield rec
+            if not rec.sealed:
+                raise RuntimeError("the capture ended without sealing the monitor's record")
+            if calls:
+                with self._lock:
+                    self._captured.append(_Rows(weakref.ref(rec), rec.rows, calls))
+
     def fold(self) -> None:
-        """Fold every queued dispatch into the per-site stats: one
-        device-to-host copy of the queued scalars (per device), then the
-        reference's ``_record`` per dispatch, in dispatch order."""
+        """Fold every queued dispatch and every captured row's calls since
+        the last fold into the per-site stats: one device-to-host copy per
+        device, then the reference's ``_record`` per queued dispatch and
+        ``_fold_calls`` per row, in the order of their stamps."""
         with self._fold_lock:
             with self._lock:
                 queue, self._queue = self._queue, []
-            if not queue:
+                captured = list(self._captured)
+            # a record freed before the read has no replay after it: its
+            # rows leave the monitor once folded
+            freed = {id(b) for b in captured if b.record() is None}
+            if not queue and not captured:
                 return
             by_dev: dict = {}
-            for i, entry in enumerate(queue):
-                by_dev.setdefault(entry[-1].device, []).append(i)
-            host = [None] * len(queue)
-            for idx in by_dev.values():
-                flat = torch.cat([queue[i][-1] for i in idx]).cpu().tolist()
-                at = 0
-                for i in idx:
-                    n = queue[i][-1].numel()
-                    host[i], at = flat[at:at + n], at + n
+            for entry in queue:
+                by_dev.setdefault(entry[1].device, ([], []))[0].append(entry)
+            for rows in captured:
+                by_dev.setdefault(rows.rows.device, ([], []))[1].append(rows)
+            items = []          # (device, stamp, 0 a row / 1 a queued call, fold)
+            for d, (entries, blocks) in enumerate(by_dev.values()):
+                # float64 throughout, so the one copy is one same-dtype cat
+                parts = [torch.cat([e[1] for e in entries]).double()] if entries else []
+                parts += [e[2].view(1) for e in entries if torch.is_tensor(e[2])]
+                parts += [b.rows.reshape(-1) for b in blocks]
+                flat = iter(torch.cat(parts).cpu().tolist())
+
+                def take(n):
+                    return list(itertools.islice(flat, n))
+                queued = [take(e[1].numel()) for e in entries]
+                stamps = [take(1)[0] if torch.is_tensor(e[2]) else e[2] for e in entries]
+                for (call, _, _), row, stamp in zip(entries, queued, stamps):
+                    items.append((d, stamp, 1,
+                                  functools.partial(self._fold_queued, call, row)))
+                for b in blocks:
+                    block = take(b.rows.numel())
+                    for i in range(len(b.calls)):
+                        row = block[10 * i:10 * (i + 1)]
+                        if row[CALLS] > b.seen[i][0]:
+                            items.append((d, row[STAMP], 0,
+                                          functools.partial(self._fold_row, b, i, row)))
             self.folds += 1
-            for entry, row in zip(queue, host):
-                a_max, b_max, o_max = row[:3]
-                a_min, b_min = row[3:] or (0.0, 0.0)
-                # all outputs finite <=> their |out| max is (NaN propagates)
-                self._record(*entry[:-1], a_max, a_min, b_max, b_min, o_max,
-                             math.isfinite(o_max))
+            items.sort(key=lambda it: it[:3])
+            for *_, fold in items:
+                fold()
+            with self._lock:
+                self._captured = [b for b in self._captured if id(b) not in freed]
+
+    def _fold_queued(self, call, row) -> None:
+        a_max, b_max, o_max = row[:3]
+        a_min, b_min = row[3:] or (0.0, 0.0)
+        # all outputs finite <=> their |out| max is (NaN propagates)
+        self._record(call.site, call.batch, call.m, call.n, call.k, call.msb_cap,
+                     a_max, a_min, b_max, b_min, o_max, math.isfinite(o_max))
+
+    def _fold_row(self, block, i, row) -> None:
+        call, seen = block.calls[i], block.seen[i]
+        calls, wraps, nonfinite = (int(row[c]) - s for c, s in
+                                   zip((CALLS, WRAPS, NONFINITE), seen))
+        block.seen[i] = (int(row[CALLS]), int(row[WRAPS]), int(row[NONFINITE]))
+        self._fold_calls(call.site, calls, call.batch * call.m * call.n * call.k * calls,
+                         call.k, call.msb_cap,
+                         (row[A_MAX], row[A_MIN], row[B_MAX], row[B_MIN], row[O_MAX]),
+                         row[RATIO], wraps, nonfinite)
 
     # -- installation ------------------------------------------------------
     def install(self) -> "NumericsMonitor":
         if self._remove is None:
-            self._remove = dispatch.add_trace_hook(self.hook)
+            self._remove = dispatch.add_trace_hook(self)
         return self
 
     def uninstall(self) -> None:

@@ -18,12 +18,13 @@ capture/eviction/bucket-hit bookkeeping. Prompts are drawn from a CPU
 ``--require-complete`` exits nonzero if any request failed or was rejected.
 
 Observability flags: ``--monitor`` serves under a live calibration-envelope
-monitor (the base zoo plan's envelope; the pool's engines then run eager
-steps, since a trace hook sees no CUDA-graph replay), ``--metrics-dump
-out.json`` writes the registry + monitor + request-accounting snapshot
-(implies ``--monitor``), ``--inject-violation SITE`` fires one deliberately
-out-of-envelope GEMM at the named plan site after the trace drains,
-``--trace-out trace.json`` exports the span timeline as Chrome-trace JSON.
+monitor (the base zoo plan's envelope; the pool's engines are captured with
+its reductions inside their CUDA graphs, so every replay is recorded),
+``--metrics-dump out.json`` writes the registry + monitor +
+request-accounting snapshot (implies ``--monitor``), ``--inject-violation
+SITE`` fires one deliberately out-of-envelope GEMM at the named plan site
+after the trace drains, ``--trace-out trace.json`` exports the span
+timeline as Chrome-trace JSON.
 
 The GEMM schedules of the device's backend are preloaded first
 (``core.schedules``; the port's zoo is ``src/repro_torch/schedules/``, where
@@ -120,10 +121,8 @@ def main(argv=None):
         mon_ctx = monitoring(plan_doc)
 
     with mon_ctx as mon:
-        # a trace hook sees no graph replay: monitored engines run eager steps
         pool = BucketedEnginePool(cfg, params, parse_buckets(args.buckets),
-                                  max_live=args.max_engines,
-                                  graph=False if monitor_on else None)
+                                  max_live=args.max_engines)
         front = RoutedFrontend(pool, router, max_live_batches=args.max_live)
 
         streamed: list = []
@@ -142,8 +141,9 @@ def main(argv=None):
     print(f"[repro_torch.serving] {cfg.name}: {len(reqs)} requests, "
           f"buckets={args.buckets}, max_live={args.max_live}, device={dev}")
     if monitor_on:
-        print("  engines built with graph=False under the monitor (a trace hook sees "
-              "no CUDA-graph replay)")
+        graphs = sum(e.capture_count for e in pool.live().values())
+        print(f"  engines captured with the monitor's reductions inside ({graphs} CUDA "
+              f"graphs resident; eager steps on the CPU)")
     for wl, st in stats["classes"].items():
         plans = ", ".join(f"{p} x{n}" for p, n in sorted(st["plans"].items()))
         print(f"  {wl:8s} {st['completed']}/{st['submitted']} ok "

@@ -21,11 +21,12 @@ engine's padded forward, log-softmax, gather and masked sum on static
 token and mask buffers. ``capture_count`` (the reference's
 ``trace_count``) is 1 for a graph engine however many calls it serves, and
 0 for an eager one. ``graph=None`` means graphs on CUDA and eager steps on
-the CPU; only a monitored deployment passes ``graph=False`` (a trace hook
-sees no replay, ``obs.monitor``). A capture that fails raises; no engine
-falls back to eager steps. An evicted engine drops its graph, its private
-memory pool and its KV cache with it, and a later request for the same
-key captures again (``compiles`` counts it).
+the CPU, with or without the numerics monitor: an engine built while it is
+installed captures the monitor's reductions with its step, and every
+replay is recorded (``obs.monitor``). A capture that fails raises; no
+engine falls back to eager steps. An evicted engine drops its graph, its
+private memory pool and its KV cache with it, and a later request for the
+same key captures again (``compiles`` counts it).
 """
 
 from __future__ import annotations
@@ -153,9 +154,10 @@ class ScoreEngine:
         self.step_launches: dict = {}
         self.step_dispatches: dict = {}
         self._graph = self._out = None
+        self._records: list = []
         if graph:
-            self._graph, self._out, self.step_launches, self.step_dispatches = capture(
-                self._body, self._policy_ctx, dev)
+            (self._graph, self._out, self.step_launches, self.step_dispatches,
+             self._records) = capture(self._body, self._policy_ctx, dev)
             self.capture_count += 1
 
     def _policy_ctx(self):

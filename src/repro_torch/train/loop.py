@@ -11,12 +11,15 @@ backward, which torch runs on its own thread for CUDA tensors). The step
 updates the parameters in place and reads nothing back to the host: loss,
 accuracy and gradient norm stay device tensors.
 
-Waiting for later slices: ``sharded_value_and_grad`` and
-``make_mesh_train_step`` (ROADMAP queue 1, *Multi-device*), and the
-step-time histogram, restart counter and spans of ``repro_torch.obs``
-(ROADMAP queue 1, *Leftovers*);
-``Trainer`` keeps its step times in ``monitor`` and its restarts in
-``restarts`` until then.
+The ``Trainer`` reports to ``repro_torch.obs``'s default registry and
+recorder, as the reference's does: the ``repro_train_step_seconds``
+histogram (every executed step, the replayed ones too), the
+``repro_train_restarts_total`` counter (one a restore) and a
+``train.step`` span a step. The reference's ``train.step_trace`` span
+brackets a jit trace, which an eager step does not have.
+
+Waiting for a later slice: ``sharded_value_and_grad`` and
+``make_mesh_train_step`` (ROADMAP queue 1, *Multi-device*).
 """
 
 from __future__ import annotations
@@ -190,7 +193,8 @@ class Trainer:
     CUDA error and ``torch.OutOfMemoryError`` are ones) or an injected
     failure rolls back to the last checkpoint and replays. Data is a pure
     function of the step, so the replay is exact. ``restarts`` counts the
-    restores of the last ``run``."""
+    restores of the last ``run``; the registry's counter counts them all
+    (module docstring)."""
 
     def __init__(self, cfg, opt: Optimizer, data: Callable[[int], dict], step_fn,
                  checkpoint_dir: str, save_every: int = 50, keep: int = 3,
@@ -207,6 +211,11 @@ class Trainer:
         self.seed = seed
         self.metrics_log: list = []
         self.restarts = 0
+        from repro_torch.obs.registry import default_registry
+        self._m_step = default_registry().histogram(
+            "repro_train_step_seconds", "Trainer per-step wall time")
+        self._m_restarts = default_registry().counter(
+            "repro_train_restarts_total", "fault-tolerant restore events")
 
     def init_or_restore(self):
         """``(step, (params, opt_state))`` from the newest valid checkpoint,
@@ -225,6 +234,7 @@ class Trainer:
         return step, (params, _to_device(tree["opt_state"], self.device))
 
     def run(self, n_steps: int, max_restarts: int = 3):
+        from repro_torch.obs.spans import span
         step, carry = self.init_or_restore()
         self.restarts = 0
         while step < n_steps:
@@ -232,10 +242,15 @@ class Trainer:
                 t0 = time.perf_counter()
                 if self.failure_injector is not None:
                     self.failure_injector(step)
-                carry, metrics = self.step_fn(carry, self.data(step))
+                batch = self.data(step)
+                with span("train.step", step=step):
+                    carry, metrics = self.step_fn(carry, batch)
+                # the host reads the metrics: the step's device work is done
                 self.metrics_log.append({k: float(v) for k, v in metrics.items()}
                                         | {"step": step})
-                self.monitor.record(step, time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                self.monitor.record(step, dt)
+                self._m_step.observe(dt)
                 step += 1
                 if step % self.save_every == 0 or step == n_steps:
                     self.store.save(step, {"params": dict(carry[0].named_parameters()),
@@ -244,6 +259,7 @@ class Trainer:
                 self.restarts += 1
                 if self.restarts > max_restarts:
                     raise
+                self._m_restarts.inc()
                 carry = None               # free the failed state before restoring
                 step, carry = self.init_or_restore()
         return carry

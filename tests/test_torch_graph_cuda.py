@@ -5,14 +5,22 @@ per engine; a step's launches equal its FDP dispatches at capture, where the
 wrappers count them as captured, and the replays move no wrapper's count
 (``launches()`` is derived); the policy binds at capture;
 ``reset_cache`` serves again without capturing; a capture with a trace hook
-installed raises. The serving tier on the card: the score engine on one
-graph equals its eager twin, and a pool of graph engines frees an evicted
-engine and captures it anew.
+installed raises, unless it is the numerics monitor, whose reductions are
+captured with the step: a monitored graph engine or score engine captures
+once and its snapshot equals its eager twin's, two plans' engines leave the
+last replayed call's capacity, and the monitor's device exponents agree
+with the host's at the edge values. The serving tier on the card: the
+score engine on one graph equals its eager twin, and a pool of graph
+engines frees an evicted engine and captures it anew.
 
 This file imports neither JAX nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_graph_cuda.py
 """
+
+import json
+import math
+import os
 
 import pytest
 
@@ -189,3 +197,123 @@ def test_simulate_moe_engine_refuses_capture():
     assert eng.graphed and eng.capture_count == 1 and not eng.step_launches
     assert _serve(eng, cfg.vocab_size) == want and eng.replays > 0
     torch.cuda.synchronize()
+
+
+PLAN = os.path.join(os.path.dirname(__file__), "..", "examples", "plans", "paper_mlp.json")
+
+
+@pytest.mark.cuda
+def test_monitored_graph_engines_equal_their_eager_twins():
+    """Under the numerics monitor a ``ContinuousBatcher`` and a
+    ``ScoreEngine`` capture once, launch what an unmonitored engine does,
+    read nothing back until a reader asks, give their eager twins' tokens
+    and scores, and leave the snapshot their eager twins leave under a
+    second monitor; the monitor counts each site's dispatches a step times
+    the replays."""
+    from repro_torch.numerics import load_plan
+    from repro_torch.obs.monitor import monitoring
+    from repro_torch.obs.registry import Registry
+    from repro_torch.serving import Bucket, ScoreEngine
+    _card()
+    cfg = get_config("paper-mlp").reduced()
+    params = init(cfg, 0, device="cuda")
+    plan = load_plan(PLAN)
+    bucket = Bucket(max_len=12, n_slots=2)
+    prompts = [r.prompt for r in _requests(cfg.vocab_size)[:2]]
+    bare = ContinuousBatcher(cfg, params, n_slots=2, max_len=40, warmup=FDP91_KERNEL)
+
+    def run(graph):
+        with monitoring(plan, registry=Registry()) as mon:
+            eng = ContinuousBatcher(cfg, params, n_slots=2, max_len=40, warmup=FDP91_KERNEL,
+                                    graph=graph)
+            score = ScoreEngine(cfg, params, bucket, FDP91_KERNEL, graph=graph)
+            out = (_serve(eng, cfg.vocab_size), score.score_batch(prompts),
+                   score.score_batch(prompts[::-1]))
+            folds = mon.folds
+        return mon, eng, score, out, folds
+
+    gmon, geng, gscore, gout, gfolds = run(None)
+    assert gfolds == 0 and gmon.folds == 1          # the copy at uninstall
+    assert geng.capture_count == 1 and gscore.capture_count == 1
+    assert geng.step_launches == bare.step_launches
+    assert gscore.step_launches == {"fdp_gemm": sum(gscore.step_dispatches.values())}
+    emon, eeng, escore, eout, _ = run(False)
+    assert eeng.capture_count == 0 and gout == eout
+    assert json.dumps(gmon.snapshot(), sort_keys=True) == \
+        json.dumps(emon.snapshot(), sort_keys=True)
+    calls = gmon.registry.counter("repro_monitor_calls_total", "", ("site",))
+    for site in set(geng.step_dispatches) | set(gscore.step_dispatches):
+        assert calls.value(site=site) == geng.step_dispatches.get(site, 0) * geng.replays \
+            + gscore.step_dispatches.get(site, 0) * 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_capture_under_a_calibration_hook_raises():
+    """The calibration slot is not capturable: with the monitor installed
+    too, a capture raises."""
+    from repro_torch.numerics.trace import calibrate
+    from repro_torch.obs.monitor import NumericsMonitor
+    from repro_torch.obs.registry import Registry
+    _card()
+    cfg = get_config("paper-mlp").reduced()
+    params = init(cfg, 0, device="cuda")
+    with NumericsMonitor(None, registry=Registry()), calibrate():
+        with pytest.raises(RuntimeError, match="trace hook"):
+            ContinuousBatcher(cfg, params, n_slots=1, max_len=8, warmup=FDP91_KERNEL)
+
+
+@pytest.mark.cuda
+def test_two_plans_engines_leave_the_last_replayed_capacity():
+    """One site served by two graph engines of different plans, in turns:
+    ``msb_capacity`` is the last replayed call's, as an eager pair of
+    engines in the same order leaves it under a second monitor."""
+    from repro_torch.core.accumulator import AccumulatorSpec
+    from repro_torch.core.formats import FP32
+    from repro_torch.obs.monitor import NumericsMonitor
+    from repro_torch.obs.registry import Registry
+    _card()
+    cfg = get_config("paper-mlp").reduced()
+    params = init(cfg, 0, device="cuda")
+    low = TD.NumericsPolicy(TD.GemmConfig(FP32, AccumulatorSpec(9, 6, -20), "simulate"),
+                            name="low")
+
+    def run(graph):
+        mon = NumericsMonitor(None, registry=Registry())
+        caps = []
+        with mon:
+            engines = [ContinuousBatcher(cfg, params, n_slots=2, max_len=40, warmup=pol,
+                                         graph=graph) for pol in (FDP91_KERNEL, low)]
+            for i in (0, 1, 0):
+                _serve(engines[i], cfg.vocab_size)
+                engines[i].reset_cache()
+                caps.append(mon.status("mlp_in")["live"]["msb_capacity"])
+        return mon, caps, engines
+
+    gmon, gcaps, engines = run(None)
+    assert [e.capture_count for e in engines] == [1, 1]
+    emon, ecaps, _ = run(False)
+    assert gcaps == ecaps == [FDP91_KERNEL.lookup("mlp_in").acc.msb, 6,
+                              FDP91_KERNEL.lookup("mlp_in").acc.msb]
+    assert json.dumps(gmon.snapshot(), sort_keys=True) == \
+        json.dumps(emon.snapshot(), sort_keys=True)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_device_exponents_agree_with_the_host_at_edge_values(device):
+    """The monitor's device ``floor(log2 x)`` of float32 values (``torch.frexp``
+    after widening to float64) against the host's ``math.frexp`` of the same
+    value widened to double: 0, subnormals, the normal range's ends, inf,
+    NaN and negatives (where the host's is None)."""
+    from repro_torch.obs.monitor import _floor_log2, _floor_log2_t
+    if device == "cuda":
+        _card()
+    tiny = torch.finfo(torch.float32).tiny
+    vals = [0.0, -0.0, 2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -127, tiny * (1 - 2.0 ** -23),
+            tiny, 0.75, 1.0, 1.5, 2.0 ** 100, torch.finfo(torch.float32).max, math.inf,
+            -math.inf, math.nan, -2.0, -(2.0 ** -149)]
+    x = torch.tensor(vals, dtype=torch.float32)
+    exp, valid = _floor_log2_t(x.to(device))
+    got = [int(e) if ok else None for e, ok in zip(exp.tolist(), valid.tolist())]
+    assert got == [_floor_log2(v) for v in x.tolist()]
+    assert got[2] == -149 and got[5] == -127 and got[6] == -126 and got[11] == 127

@@ -246,6 +246,194 @@ def test_monitors_give_equal_snapshots_on_the_same_gemms(case):
     assert tsnap["sites"]["s3"]["status"] == UNMONITORED
 
 
+def _replay_operands():
+    """Three runs of five GEMMs on the same shapes: ``_operands()`` scaled by
+    a power of two a run, and a fifth GEMM whose operands reach 2^70 in the
+    second run only (a non-finite native output, an accumulator wrap)."""
+    base = _operands() + [(np.full((4, 16), 0.5, np.float32), np.full((16, 8), 0.25,
+                                                                         np.float32))]
+    runs = []
+    for r, scale in enumerate((1.0, 2.0 ** 3, 2.0 ** -2)):
+        ops = [(a * np.float32(scale), b) for a, b in base[:-1]]
+        big = np.float32(2.0 ** 70 if r == 1 else 1.0)
+        ops.append((base[-1][0] * big, base[-1][1] * big))
+        runs.append(ops)
+    return runs
+
+
+def _captured_runs(mon, sites, policy, runs):
+    """Drive the captured-record path on the CPU as a CUDA graph's replays
+    do: two warm-up calls (recording nothing), then the same body once a
+    run against one set of rows, the k-th dispatch updating row k. On the
+    CPU the capture pass executes, so it is the first run."""
+    bufs = [(torch.zeros(a.shape), torch.zeros(b.shape)) for a, b in runs[0]]
+
+    def body():
+        for site, (a, b) in zip(sites, bufs):
+            TD.gemm(a, b, site=site, policy=policy)
+
+    def load(ops):
+        for (ta, tb), (a, b) in zip(bufs, ops):
+            ta.copy_(torch.from_numpy(a))
+            tb.copy_(torch.from_numpy(b))
+
+    load(runs[0])
+    for _ in range(2):
+        with mon.warmup():
+            body()
+    with mon.capture() as rec:
+        body()
+        rec.seal()
+    for ops in runs[1:]:
+        load(ops)
+        with rec.recording():
+            body()
+            rec.seal()
+    return rec
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_captured_records_equal_the_reference_under_one_jit(case):
+    """The captured-record path against ``repro.obs.monitor`` under one
+    ``jax.jit`` executed three times (one trace) and against the port's own
+    eager queue: equal snapshots and registries, as JSON, in every case of
+    the parity test above, with a wrap and a non-finite output in one run."""
+    jcfg, tcfg, lsb = CASES[case]
+    msb = tcfg.acc.msb if tcfg.acc is not None else 127
+    env = _envelope(lsb, msb)
+    jpol = JD.NumericsPolicy(jcfg, name=case)
+    tpol = TD.NumericsPolicy(tcfg, name=case)
+    sites = ("s1", "s2", "s1", "s3", "s2")
+    runs = _replay_operands()
+    traces = []
+
+    @jax.jit
+    def step(*ops):
+        traces.append(1)
+        return [JD.gemm(ops[2 * i], ops[2 * i + 1], site=site, policy=jpol)
+                for i, site in enumerate(sites)]
+
+    jreg, treg, ereg = JRegistry(), Registry(), Registry()
+    jmon = JM.NumericsMonitor(env, registry=jreg)
+    with jmon:
+        for ops in runs:
+            jax.block_until_ready(step(*(jnp.asarray(x) for pair in ops for x in pair)))
+    assert len(traces) == 1
+    tmon = NumericsMonitor(env, registry=treg)
+    with tmon:
+        _captured_runs(tmon, sites, tpol, runs)
+        assert tmon.folds == 0 and not tmon._queue
+    emon = NumericsMonitor(env, registry=ereg)
+    with emon:
+        for ops in runs:
+            for site, (a, b) in zip(sites, ops):
+                TD.gemm(torch.from_numpy(a), torch.from_numpy(b), site=site, policy=tpol)
+    jsnap = json.dumps(jmon.snapshot(), sort_keys=True)
+    assert json.dumps(tmon.snapshot(), sort_keys=True) == jsnap
+    assert json.dumps(emon.snapshot(), sort_keys=True) == jsnap
+    assert treg.snapshot_json() == jreg.snapshot_json() == ereg.snapshot_json()
+    live = tmon.snapshot()["sites"]["s2"]["live"]
+    assert live["calls"] == 6 and live["wrap_events"] + live["nonfinite_events"] >= 1
+    assert tmon.snapshot()["sites"]["s3"]["status"] == UNMONITORED
+    assert tmon.folds == 1 and not tmon._captured   # at uninstall; the record was freed
+
+
+def test_warmup_records_nothing():
+    """A warm-up call records only its dispatches' static shapes: no scalar
+    is computed or queued and nothing is folded, as the reference's
+    ``.lower().compile()`` executes nothing."""
+    reg = Registry()
+    a, b = torch.ones((4, 8)), torch.ones((8, 4))
+    with NumericsMonitor(_env(), registry=reg) as mon:
+        with mon.warmup():
+            TD.gemm(a, b, site="s")
+            TD.gemm(a, b, site="s")
+        assert not mon._queue and not mon._captured and mon.folds == 0
+    assert mon.folds == 0 and mon.status("s")["live"] is None
+    assert reg.counter("repro_monitor_calls_total", "", ("site",)).total() == 0
+    assert [c.site for c in mon._tls.warm] == ["s", "s"]
+
+
+def test_capture_the_monitor_cannot_record_raises(monkeypatch):
+    """A captured body that dispatches otherwise than its warm-up raises, and
+    so does a monitored dispatch under a capture the monitor was not told
+    of: its queued scalars would be the capture pass's garbage."""
+    a, b = torch.ones((4, 8)), torch.ones((8, 4))
+    with NumericsMonitor(_env(), registry=Registry()) as mon:
+        with mon.warmup():
+            TD.gemm(a, b, site="s")
+        with pytest.raises(RuntimeError, match="warm-up call dispatched"):
+            with mon.capture():
+                TD.gemm(a, b, site="other")
+        with mon.warmup():
+            TD.gemm(a, b, site="s")
+            TD.gemm(a, b, site="s")
+        with pytest.raises(RuntimeError, match="dispatched 1 GEMMs"):
+            with mon.capture() as rec:
+                TD.gemm(a, b, site="s")
+                rec.seal()
+        with pytest.raises(RuntimeError, match="needs a warm-up call"):
+            with mon.capture():
+                pass
+        monkeypatch.setattr(TM, "capturing", lambda: True)
+        with pytest.raises(RuntimeError, match="did not tell the monitor"):
+            TD.gemm(a, b, site="s")
+        assert not mon._captured and not mon._queue
+    assert mon.status("s")["live"] is None
+
+
+def test_captured_msb_capacity_is_the_last_replayed():
+    """One site under two plans, captured in two records and replayed in
+    turns, eager calls between them: ``msb_capacity`` is the last call's,
+    as the eager order gives it, and a record freed before a fold keeps its
+    calls."""
+    import gc
+    low = TD.NumericsPolicy(TD.GemmConfig(TFP32, TSpec(*SPEC_LOW), "simulate"), name="low")
+    a, b = torch.full((4, 8), 0.5), torch.full((8, 4), 0.25)
+
+    def body(pol):
+        return lambda: TD.gemm(a, b, site="s", policy=pol)
+
+    def capture(mon, fn):
+        with mon.warmup():
+            fn()
+        with mon.capture() as rec:
+            fn()
+            rec.seal()
+        return rec
+
+    def replay(rec, fn):
+        with rec.recording():
+            fn()
+            rec.seal()
+
+    order = ("fdp", "low", "eager", "low", "fdp", "fdp", "low")
+    pols = {"fdp": TD.FDP91, "low": low, "eager": TD.MXU_FP32}
+    emon = NumericsMonitor(_env(), registry=Registry())
+    with emon:
+        for name in order:
+            body(pols[name])()
+    mon = NumericsMonitor(_env(), registry=Registry())
+    with mon:
+        recs = {n: capture(mon, body(pols[n])) for n in ("fdp", "low")}   # one call each
+        for name in order[2:]:
+            if name == "eager":
+                body(pols[name])()
+            else:
+                replay(recs[name], body(pols[name]))
+        assert mon.status("s")["live"]["msb_capacity"] == SPEC_LOW[1]
+        replay(recs["fdp"], body(pols["fdp"]))
+        del recs["fdp"]
+        gc.collect()
+    emon.install()
+    with emon:
+        body(TD.FDP91)()
+    assert len(mon._captured) == 1            # the freed record left once folded
+    assert json.dumps(mon.snapshot(), sort_keys=True) == \
+        json.dumps(emon.snapshot(), sort_keys=True)
+    assert mon.snapshot()["sites"]["s"]["live"]["msb_capacity"] == TD.FDP91.default.acc.msb
+
+
 def test_paper_mlp_forward_statuses_equal_reference():
     """The reduced paper-mlp forward on carried weights under the zoo plan's
     envelope: the same status at every site, and the same calls."""

@@ -308,7 +308,7 @@ def test_launch_serve_monitor_builds_eager_engines(tmp_path, capsys):
               "--precision-plan", os.path.join(PLANS_DIR, "paper_mlp.json"),
               "--metrics-dump", str(dump)])
     out = capsys.readouterr().out
-    assert "the continuous engine is built with graph=False" in out
+    assert "the continuous engine is captured with the monitor's reductions inside" in out
     assert "[serve] monitor: worst=inside" in out
     doc = json.loads(dump.read_text())
     assert doc["kind"] == "repro.obs.ServingMetricsDump" and doc["engine"] == "continuous"

@@ -494,3 +494,63 @@ def test_launch_train_runs_on_cpu(capsys):
     with pytest.raises(ValueError, match="BITSxBLOCK"):
         TLT.parse_opt_precision("8by64")
     assert TLT.parse_opt_precision("fp32") is None
+
+
+def test_trainer_obs_metrics_equal_reference(tmp_path, monkeypatch):
+    """The port's and the reference's ``Trainer`` on a reduced config with
+    one injected failure, on fresh registries: the same count of
+    ``repro_train_step_seconds`` observations (every executed step, the
+    replayed one too), the same ``repro_train_restarts_total`` and the same
+    ``train.step`` spans with their ``step`` attributes."""
+    from repro.data.synthetic import SyntheticLM as JSyntheticLM
+    from repro.obs import registry as jobs_registry
+    from repro.obs import spans as jobs_spans
+    from repro_torch.obs import registry as tobs_registry
+    from repro_torch.obs import spans as tobs_spans
+    over = dict(d_model=32, d_ff=64, n_layers=1, vocab_size=32, n_heads=2, n_kv_heads=2,
+                head_dim=16)
+    jc, tc = jget("paper-mlp").reduced(**over), tget("paper-mlp").reduced(**over)
+    ds = JSyntheticLM(jc.vocab_size, 8, 2, seed=0)
+
+    def data(step):
+        tb = ds.batch(step)
+        return {"tokens": np.asarray(tb.tokens), "targets": np.asarray(tb.targets),
+                "loss_mask": np.asarray(tb.loss_mask)}
+
+    def injector(failure):
+        crashed = []
+
+        def inject(step):
+            if step == 3 and not crashed:
+                crashed.append(step)
+                raise failure("simulated node failure")
+        return inject
+
+    regs = {"jax": jobs_registry.Registry(), "torch": tobs_registry.Registry()}
+    monkeypatch.setattr(jobs_registry, "default_registry", lambda: regs["jax"])
+    monkeypatch.setattr(tobs_registry, "default_registry", lambda: regs["torch"])
+    jobs_spans.recorder().clear()
+    tobs_spans.recorder().clear()
+    jopt = JO.adamw(lr=1e-3)
+    jtrainer = JL.Trainer(jc, jopt, data, JL.make_train_step(jc, jopt, LOCAL, remat="none",
+                                                             donate=False),
+                          str(tmp_path / "jax"), save_every=2,
+                          failure_injector=injector(JL.InjectedFailure))
+    jtrainer.run(5)
+    topt = TO.adamw(lr=1e-3)
+    ttrainer = TL.Trainer(tc, topt, lambda s: _tbatch(data(s)),
+                          TL.make_train_step(tc, topt, remat="none"), str(tmp_path / "torch"),
+                          save_every=2, failure_injector=injector(TL.InjectedFailure),
+                          device="cpu")
+    ttrainer.run(5)
+    got = {}
+    for name, reg, rec in (("jax", regs["jax"], jobs_spans.recorder()),
+                           ("torch", regs["torch"], tobs_spans.recorder())):
+        hist = reg.snapshot()["metrics"]["repro_train_step_seconds"]
+        restarts = reg.counter("repro_train_restarts_total", "").value()
+        steps = [(e["name"], e["args"]["step"]) for e in rec.events()
+                 if e["name"] == "train.step"]
+        got[name] = (hist["values"][0]["count"], restarts, steps)
+    assert got["torch"] == got["jax"]
+    assert got["torch"] == (6, 1.0, [("train.step", s) for s in (0, 1, 2, 2, 3, 4)])
+    assert ttrainer.restarts == 1 and isinstance(ttrainer.monitor, TL.StragglerMonitor)
