@@ -220,7 +220,29 @@ Phases (any failure exits non-zero before the final line):
      watched), tok/s beside phases 3 and 18; (d) a ``simulate`` dbrx-132b
      graph engine at reduced widths captures and gives its eager twin's
      tokens;
- 21. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 21. data parallelism on the one card: a world of four ranks sharing it
+     over gloo (``launch.mesh.spawn``; NCCL refuses ranks that share a
+     device), its meshes 1x4, 2x2 and 4x1 built in that one world: (a)
+     ``fdp_psum`` of mlp_in's prefill (64, 1024) @ (1024, 3072) K-sharded
+     over the four ranks, for the identity and two permuted shard
+     assignments, torch.equal the dense kernel's unsharded output on every
+     rank; ``reproducible_psum``, ``quantized_psum`` with three
+     error-feedback steps and ``CompressedGradReducer`` on CUDA tensors
+     torch.equal the same collectives on host tensors; ``validate_overflow()``
+     silent on a benign payload and raising on every rank at a spillover on
+     one; the backend of every group printed; (b) qwen3-0.6b at full width
+     under FDP91_KERNEL (a seed-0 draw on every rank, checksums equal):
+     ``MeshReshapeStability`` reads 53.0 logits and gradient bits on
+     "1x4,2x2,4x1"; one ``make_mesh_train_step`` (AdamW, the gradient mean
+     on the ⟨10,10,-20⟩ grid) on 1x4 and on 2x2 from the same weights gives
+     torch.equal parameters; each rank's dense launches in the 1x4 step
+     equal its FDP dispatches; the same two steps with a float gradient sum
+     print their largest |difference| (reported); one process's
+     ``make_train_step(microbatches=4)`` with the same fixed-point grid on
+     the same batch torch.equal the 1x4 step (the check of the mesh step's
+     gradient mean against a path held on its own); every all-reduce past
+     1 MB timed;
+ 22. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -296,6 +318,16 @@ ROUTED_TRACE = (
     ("chat", "generate", "too_long", {}, "AdmissionError"),
 )
 ROUTED_SCORE_RTOL = 1e-5
+# Phase 21, data parallelism on one card: a world of four ranks sharing
+# cuda:0 over gloo, qwen3-0.6b's mesh step on a global batch of 4 x 64
+# tokens (1 x 64 a rank), the fixed-point grid of its gradient mean (the
+# train CLI's --fdp-grad spec), the phase's timeouts (a rank's collectives
+# wait for the slowest rank's forward and backward, four ranks sharing the
+# card), and the collectives' payloads: mlp_in's prefill (64, 1024) @ (1024,
+# 3072), K-sharded, and 2^20 elements a rank for the psums
+MESH_WORLD, MESH_SEQ, MESH_GRAD = 4, 64, (10, 10, -20)
+MESH_TIMEOUT, MESH_COLLECTIVE_TIMEOUT = 600, 300
+MESH_GEMM, MESH_PSUM = (64, 1024, 3072), 1 << 20
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -1611,6 +1643,290 @@ def schedules_phase(torch, dev, cfg, params, phase3_tokens, phase18_tokens, make
             "serve_tok_s": serve_tok_s, "engine_tok_s": engine_tok_s,
             "dense_launches_on_persisted": launched["named"],
             "part_s": part_s, "phase_s": phase_s}
+
+
+def mesh_rank(dev, arch: str) -> dict:
+    """Phase 21 on one rank of a world of ``MESH_WORLD`` ranks sharing the
+    card (``launch.mesh.spawn`` runs it on every rank; module docstring).
+    Returns the rank's checks, counts and seconds by part."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import accumulator as acc
+    from repro_torch.core import dispatch as D
+    from repro_torch.core import fdp
+    from repro_torch.core.accumulator import AccumulatorSpec
+    from repro_torch.core.formats import FP32
+    from repro_torch.core.qformat import QuantConfig
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.launch.sharding import distribution_for, make_mesh
+    from repro_torch.models import init
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.axes import use_mesh
+    from repro_torch.train.loop import make_mesh_train_step, make_train_step
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.workloads import MeshReshapeStability
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {"rank": r, "seconds": {}, "reduces": []}
+
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+    spec30, grad_spec = AccumulatorSpec(30, 30, -30), AccumulatorSpec(*MESH_GRAD)
+
+    # every all-reduce past 1 MB timed on the host clock around synchronize
+    # (gloo stages a CUDA tensor through host memory)
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(t, *args, **kw):
+        nbytes = t.numel() * t.element_size()
+        if nbytes < 1 << 20:
+            return all_reduce(t, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = all_reduce(t, *args, **kw)
+        torch.cuda.synchronize()
+        out["reduces"].append((nbytes, str(t.dtype).replace("torch.", ""),
+                               time.perf_counter() - t0))
+        return res
+
+    dist.all_reduce = timed_all_reduce
+    clock = [time.perf_counter()]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    # -- (a) the collectives on CUDA tensors ----------------------------------
+    M_, K_, N_ = MESH_GEMM
+    gen = torch.Generator().manual_seed(21)
+    a = torch.randn(M_, K_, generator=gen).to(dev)
+    b = (torch.randn(K_, N_, generator=gen) * K_ ** -0.5).to(dev)
+    want = K.fdp_gemm(a[None], b[None], spec=spec30, fmt=FP32)[0]   # unsharded
+    line = DeviceMesh((n,), ("x",))
+    out["backends"] = line.backends()
+    kb = K_ // n
+    perms = [list(range(n)), list(range(n))[::-1], [1, 3, 0, 2][:n]]
+    out["fdp_psum"] = []
+    with use_mesh(line):
+        for perm in perms:
+            idx = torch.cat([torch.arange(p * kb, (p + 1) * kb) for p in perm]).to(dev)
+            al, bl = a[:, idx][:, r * kb:(r + 1) * kb], b[idx][r * kb:(r + 1) * kb]
+            got = acc.to_float(spec30, C.fdp_psum(fdp.fdp_gemm_limbs(al, bl, spec30),
+                                                  "x", spec30))
+            out["fdp_psum"].append({"perm": perm, "equal": torch.equal(got, want),
+                                    "max_abs_err": float((got - want).abs().max())})
+        part("a: fdp_psum")
+        # each collective on the card against the same collective on host
+        # tensors (the CPU path is held to the JAX package in the CPU tests)
+        x = torch.randn(n, MESH_PSUM, generator=gen)[r]
+        g = (torch.randn(n, MESH_PSUM, generator=gen) * 1e-2)[r]
+        on = {}
+        for where in ("cuda", "cpu"):
+            xd, gd = (x.to(dev), g.to(dev)) if where == "cuda" else (x, g)
+            res = {"reproducible": C.reproducible_psum(xd, "x", AccumulatorSpec(8, 8, -16))}
+            resid = torch.zeros_like(gd)
+            for _ in range(3):
+                q, resid = C.quantized_psum(gd, "x", QuantConfig(4, 32), mean=True,
+                                            residual=resid)
+            res["quantized"], res["residual"] = q, resid
+            red = C.CompressedGradReducer(AccumulatorSpec(4, 2, -8), "x")
+            c_out, c_res = red.reduce({"g": gd}, red.init({"g": gd}))
+            res["compressed"], res["compressed_residual"] = c_out["g"], c_res["g"]
+            on[where] = {k: v.cpu() for k, v in res.items()}
+        out["collectives_equal"] = {k: torch.equal(on["cuda"][k], on["cpu"][k])
+                                    for k in on["cuda"]}
+        gd = g.to(dev)
+        with C.validate_overflow():
+            C.quantized_psum(gd, "x", QuantConfig(4, 32), residual=torch.zeros_like(gd))
+        try:
+            with C.validate_overflow():
+                C.quantized_psum(gd, "x", QuantConfig(4, 32),
+                                 residual=torch.full_like(gd, 100.0 if r == 0 else 0.0))
+            out["spillover_raised"] = False
+        except OverflowError:
+            out["spillover_raised"] = True
+    part("a: the other collectives")
+
+    # -- (b) qwen3-0.6b at full width, data-parallel --------------------------
+    cfg = get_config(arch)
+    # every rank draws seed 0 on its host at once (init draws on the host for
+    # every device), which takes no longer than one draw and a 3 GB
+    # broadcast through gloo would; a checksum a parameter, maximized and
+    # minimized over the world, shows that the ranks hold the same weights
+    params = init(cfg, 0, device=dev)
+    sums = torch.stack([p.detach().reshape(-1).view(torch.int32).sum(dtype=torch.int64)
+                        for p in params.parameters()])
+    hi, lo = sums.clone(), -sums
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MAX)
+    out["same_weights"] = torch.equal(hi, -lo)
+    init_host = {k: host(p) for k, p in params.named_parameters()}
+    out["n_params"] = sum(p.numel() for p in init_host.values())
+    part("b: weights (a seed-0 draw a rank)")
+    rep = MeshReshapeStability(cfg=cfg, params=params, seed=0, device=dev).run(FDP91_KERNEL)
+    out["report"] = rep.to_json()
+    part("b: MeshReshapeStability")
+
+    gen = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (n, MESH_SEQ), generator=gen),
+             "targets": torch.randint(0, cfg.vocab_size, (n, MESH_SEQ), generator=gen)}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+
+    def restore():
+        with torch.no_grad():
+            for k, p in params.named_parameters():
+                p.copy_(init_host[k])
+
+    meshes = {}     # one mesh (and its gloo groups) a shape, built in one order
+
+    def mesh_step(shape, spec, count=False):
+        restore()
+        opt = adamw(lr=TRAIN_LR)
+        state = opt.init(params)
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape)
+        mesh = meshes[shape]
+        step = make_mesh_train_step(cfg, opt, distribution_for(mesh, "ddp", FDP91_KERNEL),
+                                    fdp_grad_spec=spec)
+        if count:
+            D.reset_sites_seen()
+            K.fdp_gemm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step((params, state), batch)
+        torch.cuda.synchronize()
+        res = {"mesh": mesh.describe(), "seconds": time.perf_counter() - t0,
+               "loss": float(metrics["loss"]), "backends": mesh.backends()}
+        if count:
+            res["launches"] = K.fdp_gemm.launches
+            res["dispatches"] = sum(D.site_calls().values())
+        return res
+
+    out["steps"] = {}
+    out["steps"]["fixed 1x4"] = mesh_step((1, n), grad_spec, count=True)
+    fixed = {k: host(p) for k, p in params.named_parameters()}
+    out["steps"]["fixed 2x2"] = mesh_step((2, n // 2), grad_spec)
+    out["fixed_equal"] = all(torch.equal(p, fixed[k].to(dev))
+                             for k, p in params.named_parameters())
+    part("b: fixed-point steps 1x4, 2x2")
+    out["steps"]["float 1x4"] = mesh_step((1, n), None)
+    flt = {k: host(p) for k, p in params.named_parameters()}
+    out["steps"]["float 2x2"] = mesh_step((2, n // 2), None)
+    with torch.no_grad():
+        out["float_drift"] = max(float((p - flt[k].to(dev)).abs().max())
+                                 for k, p in params.named_parameters())
+        out["float_vs_fixed"] = max(float((flt[k].to(dev) - fixed[k].to(dev)).abs().max())
+                                    for k in fixed)
+    del flt
+    part("b: float-sum steps 1x4, 2x2")
+    # one process's microbatched step on the same global batch, rank 0 alone
+    if r == 0:
+        restore()
+        opt = adamw(lr=TRAIN_LR)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat="none", microbatches=n, fdp_grad_spec=grad_spec,
+                               numerics_policy=FDP91_KERNEL)
+        step((params, state), batch)
+        del state
+        out["microbatched_equal"] = all(torch.equal(p, fixed[k].to(dev))
+                                        for k, p in params.named_parameters())
+    del params, fixed, init_host
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    part("b: microbatched step (rank 0)")
+    return out
+
+
+def mesh_phase(torch, arch: str) -> dict:
+    """Phase 21: spawn the world, gate every rank's results, print them.
+    Returns what the kernels line needs."""
+    from repro_torch.launch.mesh import spawn
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_WORLD, device="cuda:0", args=(arch,),
+                  timeout=MESH_TIMEOUT, collective_timeout=MESH_COLLECTIVE_TIMEOUT)
+    wall = time.perf_counter() - t
+    r0 = ranks[0]
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        if not r["same_weights"]:
+            fail(f"{tag}: the ranks' seed-0 weights differ")
+        if set(r["backends"].values()) != {"gloo"}:
+            fail(f"{tag}: the line mesh's groups run {r['backends']}, not gloo")
+        for case in r["fdp_psum"]:
+            if not case["equal"]:
+                fail(f"{tag}: fdp_psum over shard assignment {case['perm']} != the dense "
+                     f"kernel's unsharded mlp_in output (max |diff| {case['max_abs_err']})")
+        bad = [k for k, ok in r["collectives_equal"].items() if not ok]
+        if bad:
+            fail(f"{tag}: on CUDA tensors != on host tensors: {bad}")
+        if not r["spillover_raised"]:
+            fail(f"{tag}: validate_overflow() silent on a spillover")
+        rep = r["report"]
+        if (rep["mesh"], rep["details"]["logits_bits"], rep["details"]["grad_bits"]) != \
+                ("1x4,2x2,4x1", 53.0, 53.0):
+            fail(f"{tag}: MeshReshapeStability under FDP91_KERNEL read mesh {rep['mesh']}, "
+                 f"logits {rep['details'].get('logits_bits')} and grad "
+                 f"{rep['details'].get('grad_bits')} bits, not 1x4,2x2,4x1 at 53.0 and 53.0")
+        if not r["fixed_equal"]:
+            fail(f"{tag}: the fixed-point mesh step's parameters differ on 1x4 and 2x2")
+        step = r["steps"]["fixed 1x4"]
+        if step["launches"] <= 0 or step["launches"] != step["dispatches"]:
+            fail(f"{tag}: the 1x4 mesh step launched the dense kernel {step['launches']} "
+                 f"times, its FDP dispatches were {step['dispatches']}")
+        if not all(math.isfinite(s["loss"]) for s in r["steps"].values()):
+            fail(f"{tag}: a mesh step's loss is not finite: {r['steps']}")
+    # the one check that ties the mesh step's gradient mean to a path held
+    # on its own: one process's microbatched fixed-point mean of the same
+    # four 1 x 64 gradients
+    if not r0["microbatched_equal"]:
+        fail(f"one process's make_train_step(microbatches={MESH_WORLD}, fdp_grad_spec) "
+             "ended on other parameters than the fixed-point 1x4 mesh step")
+    if any(r["report"] != r0["report"] for r in ranks):
+        fail("the ranks' mesh reports differ")
+    log(f"world of {MESH_WORLD} ranks on one card ({', '.join(f'{a} {b}' for a, b in r0['backends'].items())}): "
+        f"spawned, ran and ended in {wall:.2f} s")
+    log(f"(a) fdp_psum of mlp_in's prefill {MESH_GEMM} K-sharded over {MESH_WORLD} ranks "
+        f"torch.equal the dense kernel's unsharded output on every rank, for shard "
+        f"assignments {[c['perm'] for c in r0['fdp_psum']]}; reproducible_psum, "
+        f"quantized_psum (3 error-feedback steps) and CompressedGradReducer on CUDA "
+        f"tensors torch.equal the same on host tensors; validate_overflow() silent on a "
+        f"benign payload and raising on every rank at a spillover on rank 0")
+    rep = r0["report"]
+    log(f"(b) {arch} at full width ({r0['n_params'] / 1e6:.1f} M parameters) under "
+        f"FDP91_KERNEL: MeshReshapeStability mesh {rep['mesh']}, logits_bits "
+        f"{rep['details']['logits_bits']}, grad_bits {rep['details']['grad_bits']}, "
+        f"site bits {rep['site_attribution']}")
+    for r in ranks:
+        log(f"  rank {r['rank']}: " + "; ".join(
+            f"{name} {s['seconds']:.2f} s loss {s['loss']:.6f}"
+            + (f" launches {s['launches']} == dispatches {s['dispatches']}"
+               if "launches" in s else "") + f" (groups {s['backends']})"
+            for name, s in r["steps"].items())
+            + f"; peak {r['peak_bytes'] / 1e9:.2f} GB")
+    log(f"  the fixed-point step's parameters on 1x4 torch.equal 2x2 on every rank; the "
+        f"float-sum steps' largest |1x4 - 2x2| {r0['float_drift']:.3e} (the drift the exact "
+        f"mean takes away; float 1x4 vs fixed 1x4 {r0['float_vs_fixed']:.3e}); one "
+        f"process's make_train_step(microbatches={MESH_WORLD}, fdp_grad_spec) "
+        f"torch.equal the 1x4 step")
+    by = collections.defaultdict(list)
+    for r in ranks:
+        for nbytes, dtype, s in r["reduces"]:
+            by[(nbytes, dtype)].append(s)
+    for (nbytes, dtype), ss in sorted(by.items()):
+        log(f"  all-reduce of {nbytes / 1e9:.3f} GB {dtype} (gloo, CUDA tensors): "
+            f"{len(ss)} calls over the ranks, {min(ss):.3f}-{max(ss):.3f} s a call")
+    for name in r0["seconds"]:
+        log(f"  {name}: " + ", ".join(f"{r['seconds'][name]:.2f}" for r in ranks) + " s by rank")
+    return {"launches": sum(r["steps"]["fixed 1x4"]["launches"] for r in ranks),
+            "wall_s": wall, "ranks": ranks}
 
 
 def main() -> None:
@@ -3362,9 +3678,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     autotune_launches_total = tailoring["autotune"]["launches"] + sched["autotune_launches"]
 
+    # -- 21. data parallelism: four ranks on the card -------------------------
+    phase("21")
+    mesh = mesh_phase(torch, cfg.name)
+
     phase("")
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-20 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-21 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -3377,7 +3697,8 @@ def main() -> None:
                      + tailored_launches + workloads["launches"]["total"]
                      + sum(engine_launches["fdp_gemm"].values()) + routed_launches
                      + monitored_launches
-                     + autotune_launches_total + sched["dense_launches_on_persisted"]),
+                     + autotune_launches_total + sched["dense_launches_on_persisted"]
+                     + mesh["launches"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -3393,7 +3714,9 @@ def main() -> None:
                                  monitored_launches,
                              "autotuner's candidates (phases 16, 20)": autotune_launches_total,
                              "serve and graph engine on the cuda zoo (phase 20)":
-                                 sched["dense_launches_on_persisted"]},
+                                 sched["dense_launches_on_persisted"],
+                             "qwen3-0.6b mesh step, 1x4, summed over 4 ranks on the "
+                             "card (phase 21)": mesh["launches"]},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -3412,6 +3735,7 @@ def main() -> None:
         "serve_kernel_s_estimate": qwen["kernel_s_estimate"],
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
         "continuous": continuous, "routed_serving": routed, "schedules": sched,
+        "mesh": {k: v for k, v in mesh.items() if k != "launches"},
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

@@ -12,8 +12,9 @@ into place (atomic on POSIX), so a crash mid-save never corrupts the latest
 checkpoint; ``load_latest`` skips checkpoints whose manifest or checksums
 do not validate. Tensors are saved from the device as numpy arrays and come
 back as numpy arrays; the caller moves them to its device. Restoring onto
-another mesh (the reference's ``shardings``) comes with multi-device
-support (ROADMAP queue 1, *Multi-device*).
+a mesh (the reference's ``shardings``) waits for the sharded model (ROADMAP
+queue 1, *Multi-device*, the sharded model): a data-parallel rank holds
+every parameter whole and loads as one device does.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""BLAS-style transparent dispatch (counterpart of ``repro.core.dispatch``,
-single device).
+"""BLAS-style transparent dispatch (counterpart of ``repro.core.dispatch``).
 
 Model code never calls ``torch.matmul`` directly; it calls
 ``gemm(a, b, site="attn_q")``. A ``NumericsPolicy`` installed with
@@ -33,8 +32,12 @@ with none, the check is one ``is None``. A
 In ``pallas`` mode every dense FDP dispatch resolves one ``GemmPlan``
 (``plan_gemm``, cached per problem) for the launch the kernel makes; a
 plan measured on the card (``plan_gemm(autotune=True)``, or preloaded from
-the schedule zoo of ``core.schedules``) names that launch. ``reduce_axis``
-(sharded contractions) comes with a later slice.
+the schedule zoo of ``core.schedules``) names that launch.
+
+``gemm(..., reduce_axis=...)`` is a K-sharded contraction over the axes of
+the mesh bound by ``parallel.axes.use_mesh``: each rank contracts its local
+K-shard and the cross-rank reduction runs under the site's config (module
+``repro_torch.parallel.collectives``; ``_execute_reduce``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.device import capturing
+from repro_torch.parallel.axes import psum
 from repro_torch.obs.registry import default_registry as _obs_registry
 
 from .accumulator import SAFE_CHUNK, AccumulatorSpec
@@ -682,14 +686,56 @@ def _unbroadcast(x: torch.Tensor, shape) -> torch.Tensor:
     return x
 
 
+# -- sharded contraction: cross-rank reduction under the site's spec --------
+def _execute_reduce(cfg: GemmConfig, a: torch.Tensor, b: torch.Tensor,
+                    axis_name) -> torch.Tensor:
+    """One K-sharded matmul: the local partial contraction and the
+    cross-rank reduction over ``axis_name``, under a resolved GemmConfig.
+
+    native mode all-reduces the local f32 partials (a float sum, whose
+    order depends on the mesh, like any stock all-reduce). The FDP modes
+    reduce the accumulator register: local limbs from
+    ``fdp.fdp_gemm_limbs``, the exact integer ``fdp_psum`` across ranks,
+    then the one read-out rounding, so the sharded result is the unsharded
+    ``fdp_gemm``'s bits for any mesh or order. pallas mode reduces through
+    the same plain limb path, as the reference's does: the kernel returns
+    floats, not registers (a limb-output mode of the dense kernel waits in
+    ROADMAP, *Kernel work after the port*)."""
+    if cfg.mode == "native":
+        return psum(_execute(cfg, a, b), axis_name)
+
+    if a.ndim != 2 or b.ndim != 2:
+        raise NotImplementedError(
+            "sharded FDP contraction (reduce_axis=...) supports 2-D operands")
+    if isinstance(cfg.fmt, FloatFormat):
+        a, b = cfg.fmt.quantize(a), cfg.fmt.quantize(b)
+    from repro_torch.parallel.collectives import fdp_psum
+    from . import accumulator as acc_mod
+    from . import fdp
+    limbs = fdp.fdp_gemm_limbs(a, b, cfg.acc, cfg.fmt)
+    return acc_mod.to_float(cfg.acc, fdp_psum(limbs, axis_name, cfg.acc))
+
+
+def _dispatch_reduce(site: GemmSite, cfg: GemmConfig, a: torch.Tensor,
+                     b: torch.Tensor, axis_name) -> torch.Tensor:
+    _note_site(site.key)
+    return _maybe_trace(site.key, cfg, a, b, _execute_reduce(cfg, a, b, axis_name))
+
+
 class _Gemm(torch.autograd.Function):
     """``gemm`` with its two backward GEMMs dispatched as sites
-    (``_gemm_vjp_bwd`` of the reference)."""
+    (``_gemm_vjp_bwd`` of the reference). A K-sharded forward (``reduce_axis``
+    set) needs no collective in the backward: with the cotangent g the same
+    on every rank (the reduced output is), dA = G·B_locᵀ and dB = A_locᵀ·G
+    are already the local shards of the full gradients, so both dispatch as
+    local sites."""
 
     @staticmethod
-    def forward(ctx, a, b, site: GemmSite, pol: NumericsPolicy, plan):
+    def forward(ctx, a, b, site: GemmSite, pol: NumericsPolicy, plan, reduce_axis):
         ctx.site, ctx.pol = site, pol
         ctx.save_for_backward(a, b)
+        if reduce_axis is not None:
+            return _dispatch_reduce(site, pol.lookup(site), a, b, reduce_axis)
         return _dispatch(site, pol.lookup(site), a, b, plan=plan)
 
     @staticmethod
@@ -724,19 +770,26 @@ class _Gemm(torch.autograd.Function):
                 db = _dispatch(db_site, db_cfg, a2.transpose(-1, -2), g2)
                 db = _unbroadcast(db, b2.shape)
             db = db.reshape(b.shape).to(b.dtype)
-        return da, db, None, None, None
+        return da, db, None, None, None, None
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, site: Union[str, GemmSite] = "generic",
          policy: Optional[NumericsPolicy] = None,
-         plan: Optional[GemmPlan] = None) -> torch.Tensor:
+         plan: Optional[GemmPlan] = None, reduce_axis=None) -> torch.Tensor:
     """Policy-dispatched matmul with ``torch.matmul`` semantics; f32 out.
     Differentiating through it dispatches ``<site>@bwd.dA`` (G·Bᵀ) and
     ``<site>@bwd.dB`` (Aᵀ·G) under the policy captured here. ``plan``
     (pallas mode only) replaces the plan the call would resolve: its launch,
-    if it names one, runs the dense kernel."""
+    if it names one, runs the dense kernel.
+
+    ``reduce_axis`` (a mesh axis name or a tuple of them) makes the
+    contraction sharding-aware: under ``parallel.axes.use_mesh``, with K
+    sharded over those axes, each rank contracts its local K-shard and the
+    reduction runs under the site's config: FDP sites through the exact
+    limb-summed ``fdp_psum`` (the unsharded bits), native sites through a
+    float psum. The output is the same on every rank of ``reduce_axis``."""
     pol = policy or current_policy()
-    return _Gemm.apply(a, b, GemmSite.parse(site), pol, plan)
+    return _Gemm.apply(a, b, GemmSite.parse(site), pol, plan, reduce_axis)
 
 
 # -- grouped attention einsums ----------------------------------------------

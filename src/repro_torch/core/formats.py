@@ -37,7 +37,7 @@ class Decoded:
     def map(self, fn) -> "Decoded":
         """Apply ``fn`` to every field (the pytree ``tree.map`` of the
         reference, for slicing and broadcasting)."""
-        return Decoded(*(fn(t) for t in dataclasses.astuple(self)))
+        return Decoded(*(fn(getattr(self, f.name)) for f in dataclasses.fields(self)))
 
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:

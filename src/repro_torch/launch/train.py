@@ -15,7 +15,10 @@ plan assigns ``opt.m@state``/``opt.v@state``):
 
 ``--policy`` names a uniform policy instead; passing both is an error.
 ``--opt-precision`` wins over the plan's moment sites. ``--mesh``/
-``--profile`` come with multi-device support (ROADMAP queue 1, *Multi-device*).
+``--profile`` (the reference's GSPMD ``fsdp`` profile through
+``make_train_step``) wait for the sharded model (ROADMAP queue 1,
+*Multi-device*, the sharded model); data-parallel training over a world of
+ranks is ``train.loop.make_mesh_train_step``.
 Without ``--ckpt`` checkpoints go to a temporary directory that is removed
 at the end. The plan cache is preloaded from the device backend's schedule
 zoo first (``core.schedules``).

@@ -9,6 +9,7 @@ attribute names are the reference's dict keys.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -16,6 +17,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import dispatch
+
+
+# ---------------------------------------------------------------------------
+# Distribution context: optional mesh + constraint helper
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Distribution:
+    """The reference's ``Distribution``, field for field. Without a mesh it
+    is the single-device run (``LOCAL``). With one, ``constrain`` raises:
+    placing activations over a mesh is the sharded model (ROADMAP queue 1,
+    *Multi-device*, the sharded model), and running on one device silently
+    would hide that. Data parallelism needs no placement: it runs the whole
+    model a rank (``train.loop.make_mesh_train_step``)."""
+
+    mesh: object = None                       # launch.mesh.DeviceMesh | None
+    dp_axes: tuple = ("data",)                # batch axes (may include "pod")
+    tp_axis: Optional[str] = "model"          # tensor/sequence-parallel axis
+    mlp_pattern: str = "sp"                   # "megatron" | "sp"
+    joint_tp: bool = False                    # the decode_tp profile
+    numerics_policy: object = None            # the deployed plan's policy
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        if self.mesh is None:
+            return x
+        raise NotImplementedError(
+            "placing activations over a mesh waits for the sharded model "
+            "(ROADMAP queue 1, *Multi-device*)")
+
+
+LOCAL = Distribution()
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:

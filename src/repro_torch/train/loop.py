@@ -15,27 +15,36 @@ The ``Trainer`` reports to ``repro_torch.obs``'s default registry and
 recorder, as the reference's does: the ``repro_train_step_seconds``
 histogram (every executed step, the replayed ones too), the
 ``repro_train_restarts_total`` counter (one a restore) and a
-``train.step`` span a step. The reference's ``train.step_trace`` span
-brackets a jit trace, which an eager step does not have.
+``train.step`` span a step. The reference's ``train.step_trace`` and
+``train.mesh_step_trace`` spans bracket a jit trace, which an eager step
+does not have.
 
-Waiting for a later slice: ``sharded_value_and_grad`` and
-``make_mesh_train_step`` (ROADMAP queue 1, *Multi-device*).
+Data parallelism over a ``launch.mesh.DeviceMesh``:
+``sharded_value_and_grad`` averages each rank's gradients over mesh axes,
+on the fixed-point grid as an exact int32 all-reduce when given a spec, and
+``make_mesh_train_step`` runs the whole model on each rank's slice of the
+global batch, so one step gives the same bits on every factorization of
+the same ranks. ``make_train_step`` on a ``Distribution`` with a mesh (the
+reference's GSPMD profiles) waits for the sharded model (ROADMAP queue 1,
+*Multi-device*, the sharded model).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import dispatch
+from repro_torch.core import dispatch, qformat
 from repro_torch.core.accumulator import AccumulatorSpec
 from repro_torch.core.dispatch import NumericsPolicy, use_policy
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.parallel import axes as M
 
 from .optimizer import Optimizer
 
@@ -82,8 +91,28 @@ def make_loss_fn(cfg, *, z_loss: float = 0.0, remat: str = "block",
     return loss_fn
 
 
-def make_train_step(cfg, opt: Optimizer, *, remat: str = "block",
-                    microbatches: int = 1,
+def _grads(loss_fn, params, batch):
+    """``loss_fn``'s gradients by parameter name, in ``named_parameters``
+    order, and its metrics, detached."""
+    names, leaves = zip(*params.named_parameters())
+    loss, metrics = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
+
+
+def _apply(opt: Optimizer, grads: dict, opt_state, params):
+    """One optimizer update of ``params`` in place; the new state."""
+    if opt.apply is not None:
+        return opt.apply(grads, opt_state, params)
+    updates, opt_state = opt.update(grads, opt_state, params)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.add_(updates[name])
+    return opt_state
+
+
+def make_train_step(cfg, opt: Optimizer, dist: L.Distribution = L.LOCAL, *,
+                    remat: str = "block", microbatches: int = 1,
                     fdp_grad_spec: Optional[AccumulatorSpec] = None,
                     z_loss: float = 0.0,
                     numerics_policy: Optional[NumericsPolicy] = None):
@@ -94,15 +123,20 @@ def make_train_step(cfg, opt: Optimizer, *, remat: str = "block",
     ``microbatches > 1``: gradients accumulated over microbatches.
     ``fdp_grad_spec``: accumulate them on the spec's fixed-point grid in
     int32, so any order of the microbatches gives the same bits.
-    ``numerics_policy``: the policy of the whole step, forward and backward
-    (else the caller's)."""
+    ``numerics_policy``: the policy of the whole step, forward and backward;
+    else the one riding on ``dist``; else the caller's. ``dist`` must have
+    no mesh (module docstring)."""
+    if dist.mesh is not None:
+        raise NotImplementedError(
+            "make_train_step over a mesh (the GSPMD profiles) waits for the sharded "
+            "model (ROADMAP queue 1, *Multi-device*); data parallelism is "
+            "make_mesh_train_step")
+    if numerics_policy is None:
+        numerics_policy = dist.numerics_policy
     loss_fn = make_loss_fn(cfg, z_loss=z_loss, remat=remat)
 
     def single(params, batch):
-        names, leaves = zip(*params.named_parameters())
-        loss, metrics = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
-        return dict(zip(names, grads)), {k: v.detach() for k, v in metrics.items()}
+        return _grads(loss_fn, params, batch)
 
     def accumulate(params, batch):
         def split(x):
@@ -138,13 +172,126 @@ def make_train_step(cfg, opt: Optimizer, *, remat: str = "block",
                else contextlib.nullcontext())
         with ctx:
             grads, metrics = (accumulate if microbatches > 1 else single)(params, batch)
-        if opt.apply is not None:
-            opt_state = opt.apply(grads, opt_state, params)
+        opt_state = _apply(opt, grads, opt_state, params)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = opt_state["grad_norm"]
+        return (params, opt_state), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Mesh data parallelism with an exact gradient mean
+# ---------------------------------------------------------------------------
+def _coalesced_mean(grads: dict, axis_names, quantize, dequantize, dtype) -> dict:
+    """``dequantize`` of the sum over ``axis_names`` of every ``quantize``d
+    gradient, through one flat buffer of ``dtype``: one all-reduce a mesh
+    axis for the whole tree, not one a leaf (through gloo on CUDA tensors
+    each is a host round trip). Each float gradient is dropped once it is
+    in the buffer."""
+    names = list(grads)
+    shapes = {k: (grads[k].shape, grads[k].dtype) for k in names}
+    flat = torch.empty(sum(grads[k].numel() for k in names), dtype=dtype,
+                       device=grads[names[0]].device)
+    off = 0
+    for k in names:
+        size = grads[k].numel()
+        flat[off:off + size] = quantize(grads.pop(k)).reshape(-1)
+        off += size
+    M.psum(flat, axis_names, inplace=True)
+    out, off = {}, 0
+    for k in names:
+        shape, gdtype = shapes[k]
+        size = math.prod(shape)
+        out[k] = dequantize(flat[off:off + size]).reshape(shape).to(gdtype)
+        off += size
+    return out
+
+
+def sharded_value_and_grad(loss_fn, axis_names, *,
+                           fdp_grad_spec: Optional[AccumulatorSpec] = None,
+                           grad_quant=None):
+    """Data-parallel value and gradients under a bound mesh: local
+    gradients, then their mean over ``axis_names`` (a name or a tuple).
+    Returns ``fn(params, batch) -> ((loss, metrics), grads)``.
+
+    With ``fdp_grad_spec`` each rank's gradient is rounded onto the 2^lsb
+    grid and the mean is an int32 all-reduce with one dequantize over a
+    constant n: the same bits for any order or mesh factorization of the
+    same ranks. Else ``grad_quant`` (a block-mode ``qformat.QuantConfig``)
+    sends the mean through ``collectives.quantized_psum`` (a few bits an
+    element, the ``grad_psum@coll`` site); else a float sum over n (order-
+    dependent). ``fdp_grad_spec`` takes precedence. Loss and metrics take a
+    float mean either way: diagnostics, not part of the bit contract."""
+
+    def fn(params, batch):
+        grads, metrics = _grads(loss_fn, params, batch)
+        n = M.axis_size(axis_names)
+        if fdp_grad_spec is not None:
+            scale = 2.0 ** fdp_grad_spec.lsb
+            grads = _coalesced_mean(
+                grads, axis_names,
+                lambda g: torch.round(g.to(torch.float32) / scale).to(torch.int32),
+                lambda s: s.to(torch.float32) * scale / n, torch.int32)
+        elif grad_quant is not None and grad_quant.mode == "block":
+            from repro_torch.parallel.collectives import quantized_psum
+            grads = {k: quantized_psum(g, axis_names, grad_quant, mean=True)
+                     for k, g in grads.items()}
         else:
-            updates, opt_state = opt.update(grads, opt_state, params)
-            with torch.no_grad():
-                for name, p in params.named_parameters():
-                    p.add_(updates[name])
+            grads = _coalesced_mean(grads, axis_names, lambda g: g, lambda s: s / n,
+                                    torch.float32)
+        keys = list(metrics)
+        mean = M.pmean(torch.stack([metrics[k].to(torch.float32) for k in keys]),
+                       axis_names)
+        metrics = dict(zip(keys, mean.unbind()))
+        return (metrics["loss"], metrics), grads
+
+    return fn
+
+
+def _rank_slice(x: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    if x.shape[0] % n:
+        raise ValueError(f"global batch {x.shape[0]} does not split over {n} ranks")
+    b = x.shape[0] // n
+    return x[r * b:(r + 1) * b]
+
+
+def make_mesh_train_step(cfg, opt: Optimizer, dist: L.Distribution, *,
+                         remat: str = "none", z_loss: float = 0.0,
+                         fdp_grad_spec: Optional[AccumulatorSpec] = None,
+                         numerics_policy: Optional[NumericsPolicy] = None,
+                         grad_quant=None):
+    """Train step over the flattened mesh of ``dist`` (pure data
+    parallelism): the global batch is split over all mesh axes jointly, so
+    rank r takes slice r whatever the factorization; each rank runs the
+    whole model on its slice under the policy, and gradients reduce through
+    ``sharded_value_and_grad``. A rank's shapes depend only on the rank
+    count, so its local compute is the same on 1x8, 2x4 and 8x1; with
+    ``fdp_grad_spec`` the reduction is exact, and one step gives the same
+    logits, loss gradients and updated parameters on every factorization.
+    The update then runs identically on every rank.
+
+    ``numerics_policy`` defaults to ``dist.numerics_policy``; ``grad_quant``
+    to the policy's ``grad_psum@coll`` assignment (``fdp_grad_spec`` still
+    wins). Returns ``step((params, opt_state), global_batch) -> ((params,
+    opt_state), metrics)``; ``params`` are updated in place."""
+    if numerics_policy is None:
+        numerics_policy = dist.numerics_policy
+    if grad_quant is None and numerics_policy is not None:
+        grad_quant = numerics_policy.aux_lookup(qformat.GRAD_PSUM_SITE.key)
+    mesh = dist.mesh
+    axes = tuple(mesh.axis_names)
+    vg = sharded_value_and_grad(make_loss_fn(cfg, z_loss=z_loss, remat=remat), axes,
+                                fdp_grad_spec=fdp_grad_spec, grad_quant=grad_quant)
+
+    def step(carry, batch):
+        params, opt_state = carry
+        local = {k: _rank_slice(v, mesh.size, mesh.rank) for k, v in batch.items()}
+        ctx = (use_policy(numerics_policy) if numerics_policy is not None
+               else contextlib.nullcontext())
+        with M.use_mesh(mesh), ctx:
+            (_loss, metrics), grads = vg(params, local)
+        opt_state = _apply(opt, grads, opt_state, params)
         metrics = dict(metrics)
         metrics["grad_norm"] = opt_state["grad_norm"]
         return (params, opt_state), metrics

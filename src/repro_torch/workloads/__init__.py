@@ -16,10 +16,10 @@
 #   reproducibility  - bit-stability of results under K-reduction reordering
 #   quant_opt        - quantized-optimizer-state + compressed-collective
 #                      training-loss curves vs the fp32-state reference
-#
-# The reference's ``mesh`` workload (bit-stability across device-mesh
-# factorizations) waits for the multi-device slice (ROADMAP.md queue 1,
-# *Multi-device*): it needs ``fdp_psum``.
+#   mesh             - bit-stability across the mesh factorizations of a
+#                      torch.distributed world (K-sharded sites, and the
+#                      logits and fixed-point gradients of a data-parallel
+#                      step)
 #
 # ``python -m repro_torch.workloads --plan examples/plans/<arch>.json`` runs
 # the zoo against a checked-in plan (on the card; ``--device cpu`` here).
@@ -30,13 +30,15 @@ from .base import (PROBE_BATCH, PROBE_SEED, PROBE_SEQ, SUMMARY_KEYS,
                    validation_summary)
 from .gradients import LossGradient, bwd91_reference_policy
 from .inference import LogitFidelity
+from .mesh import MeshReshapeStability
 from .quant_opt import QuantizedOptimizer
 from .reproducibility import KReorderStability
 from .solve import IllConditionedSolve
 
 # the plan-zoo refresh's default gate: model-bound end-to-end validators
-# (solve and quant_opt are opt-in: solve's operand ranges are deliberately
-# hostile to DNN-calibrated accumulators)
+# (solve, mesh and quant_opt are opt-in: solve's operand ranges are
+# deliberately hostile to DNN-calibrated accumulators, and mesh's sweep
+# wants a world of several ranks)
 DEFAULT_VALIDATORS = ("grad", "logits", "repro")
 
 __all__ = [
@@ -45,6 +47,7 @@ __all__ = [
     "available_workloads", "build_validators", "get_workload",
     "make_probe_batch", "probed_sites", "register", "validation_summary",
     "LossGradient", "bwd91_reference_policy", "LogitFidelity",
-    "KReorderStability", "IllConditionedSolve", "QuantizedOptimizer",
+    "MeshReshapeStability", "KReorderStability", "IllConditionedSolve",
+    "QuantizedOptimizer",
     "DEFAULT_VALIDATORS",
 ]

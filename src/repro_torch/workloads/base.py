@@ -22,8 +22,10 @@ strings (``search(validators=build_validators(("grad", "logits"), ctx))``).
 
 A ``WorkloadContext`` names the device its validators run on: CUDA unless
 the caller asks for the CPU, where every GEMM runs its plain version. The
-reference's ``dist`` (a ``layers.Distribution``) is left out until the port
-runs on several devices (ROADMAP.md queue 1, *Multi-device*).
+reference's ``dist`` (a ``layers.Distribution``) is left out: no validator
+reads it, and the model placement it would carry waits for the sharded
+model (ROADMAP.md queue 1, *Multi-device*, the sharded model). The ``mesh``
+workload runs on the ranks of a ``torch.distributed`` world instead.
 """
 
 from __future__ import annotations
@@ -220,9 +222,6 @@ def make_probe_batch(cfg, *, batch_size: int, seq: int, seed: int,
 # Registry
 # ---------------------------------------------------------------------------
 _REGISTRY: dict = {}
-# registry names of the reference's that wait for a later slice
-_NOT_PORTED = {"mesh": "ROADMAP.md queue 1, *Multi-device* (it needs "
-                       "fdp_psum)"}
 
 
 def register(cls):
@@ -244,10 +243,8 @@ def get_workload(name: str):
     try:
         return _REGISTRY[name]
     except KeyError:
-        later = (f" ({name!r} is not ported yet: {_NOT_PORTED[name]})"
-                 if name in _NOT_PORTED else "")
         raise KeyError(f"unknown workload {name!r}; available: "
-                       f"{available_workloads()}{later}") from None
+                       f"{available_workloads()}") from None
 
 
 def build_validators(names: Sequence[str],

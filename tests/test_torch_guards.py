@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.workloads, repro_torch.workloads.__main__, "
             "repro_torch.data.conditioned, repro_torch.obs, repro_torch.obs.export, "
             "repro_torch.obs.__main__, repro_torch.launch.batching, repro_torch.obs.monitor, "
-            "repro_torch.serving, repro_torch.serving.__main__\n"
+            "repro_torch.serving, repro_torch.serving.__main__, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.parallel.collectives, "
+            "repro_torch.parallel.axes, repro_torch.workloads.mesh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -196,16 +196,17 @@ def test_to_float64_bit_equal(spec):
 # registry and protocol
 # ---------------------------------------------------------------------------
 def test_registry_matches_the_reference():
-    assert TW.available_workloads() == [n for n in JW.available_workloads() if n != "mesh"]
+    assert TW.available_workloads() == JW.available_workloads()
     assert TW.DEFAULT_VALIDATORS == JW.DEFAULT_VALIDATORS
-    assert sorted(TW.__all__) == sorted(n for n in JW.__all__ if n != "MeshReshapeStability")
+    assert sorted(TW.__all__) == sorted(JW.__all__)
     assert (TW.PROBE_BATCH, TW.PROBE_SEQ, TW.PROBE_SEED, TW.SUMMARY_KEYS) == \
         (JW.PROBE_BATCH, JW.PROBE_SEQ, JW.PROBE_SEED, JW.SUMMARY_KEYS)
     for name in TW.available_workloads():
         tcls, jcls = TW.get_workload(name), JW.get_workload(name)
         assert (tcls.phases, tcls.__name__) == (jcls.phases, jcls.__name__)
-    with pytest.raises(KeyError, match=r"queue 1, \*Multi-device\*"):
-        TW.get_workload("mesh")
+    (mesh,) = TW.build_validators(["mesh"], TW.WorkloadContext(budget_bits=BUDGET,
+                                                               device="cpu"))
+    assert mesh.threshold == BUDGET and mesh.run(TD.FDP91).mesh == "1x1"   # a world of 1
     with pytest.raises(KeyError, match="unknown workload"):
         TW.get_workload("nope")
     with pytest.raises(ValueError, match="model-bound"):
