@@ -242,7 +242,32 @@ Phases (any failure exits non-zero before the final line):
      the same batch torch.equal the 1x4 step (the check of the mesh step's
      gradient mean against a path held on its own); every all-reduce past
      1 MB timed;
- 22. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 22. the sharded forward, in phase 21's world (its ranks go on, from the
+     same qwen3-0.6b weights, restored): (a) ``all_gather``,
+     ``psum_scatter``, ``all_to_all`` and ``axis_index`` over both axes of
+     the 1x4 and 2x2 meshes on CUDA tensors torch.equal the same on host
+     tensors, the ops gloo stages through the host printed; (b) qwen3-0.6b
+     at full width under FDP91_KERNEL: the sequence-parallel ``forward``
+     of 4 x 64 tokens on 1x4 and on 2x2, gathered, within 1e-4 x max
+     |logit| of the main process's single-device forward (max |diff|, the
+     rows bit-equal and top-1 agreement printed); ``serve(..., dist=)`` on
+     2x2 (the Megatron MLP at decode) of phase 3's prompts gives phase 3's
+     tokens; the Megatron ``mlp_block`` on a decode input torch.equal the
+     local block; (c) dbrx-132b at full width cut to 1 layer, each rank
+     drawing seed 0 on its host and keeping its slices (the TP f/4 slices
+     and the expert-parallel E/4 experts): TP ``serve`` on 1x4 and the
+     ``decode_tp`` profile's on 2x2 of phase 5's prompts give phase 5's
+     tokens (each step's largest |diff| of logits against phase 5's
+     printed); on the main process's 4 x 16 prefill input to layer 0's MoE
+     (its full weights, before the spawn) the sequence-sharded TP
+     ``moe_block`` within rtol 2e-4 / atol 2e-5 and ``moe_block_ep``
+     torch.equal, with no row dropped; the sorted-segment kernel torch.equal
+     its plain version at the f/4 shapes; a rank's launches of each kernel
+     in each serve equal its FDP dispatches (less the Megatron MLP's
+     K-split, which sums plain limbs with ``fdp_psum``); each rank's
+     seconds by part, peak memory, every collective by op, size and dtype,
+     and the serves' tok/s;
+ 23. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -328,6 +353,12 @@ ROUTED_SCORE_RTOL = 1e-5
 MESH_WORLD, MESH_SEQ, MESH_GRAD = 4, 64, (10, 10, -20)
 MESH_TIMEOUT, MESH_COLLECTIVE_TIMEOUT = 600, 300
 MESH_GEMM, MESH_PSUM = (64, 1024, 3072), 1 << 20
+# Phase 22, the sharded forward in phase 21's world: qwen3-0.6b's sequence-
+# parallel forward of 4 x SHARD_SEQ tokens and its tolerance (times the
+# largest |logit|), the TP MoE's tolerance (the reference's moe_tp_parity),
+# and EP's capacity factor (tp: a destination can take every row a rank
+# sends, so none is dropped)
+SHARD_SEQ, SHARD_TOL, SHARD_MOE_TOL, SHARD_EP_CF = 64, 1e-4, (2e-4, 2e-5), 4.0
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -1645,10 +1676,11 @@ def schedules_phase(torch, dev, cfg, params, phase3_tokens, phase18_tokens, make
             "part_s": part_s, "phase_s": phase_s}
 
 
-def mesh_rank(dev, arch: str) -> dict:
-    """Phase 21 on one rank of a world of ``MESH_WORLD`` ranks sharing the
-    card (``launch.mesh.spawn`` runs it on every rank; module docstring).
-    Returns the rank's checks, counts and seconds by part."""
+def mesh_rank(dev, arch: str, refs: dict) -> dict:
+    """Phases 21 and 22 on one rank of a world of ``MESH_WORLD`` ranks
+    sharing the card (``launch.mesh.spawn`` runs it on every rank; module
+    docstring). Returns the rank's checks, counts and seconds by part, phase
+    22's under "p22" (``shard_rank``, on ``refs``)."""
     import torch
     import torch.distributed as dist
 
@@ -1836,23 +1868,332 @@ def mesh_rank(dev, arch: str) -> dict:
         del state
         out["microbatched_equal"] = all(torch.equal(p, fixed[k].to(dev))
                                         for k, p in params.named_parameters())
-    del params, fixed, init_host
+    restore()                          # phase 22 runs the seed-0 weights
+    del fixed, init_host
     torch.cuda.empty_cache()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     dist.barrier()
     part("b: microbatched step (rank 0)")
+    dist.all_reduce = all_reduce
+    out["t_end"] = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held = [params]                    # shard_rank frees qwen before dbrx's draw
+    del params
+    out["p22"] = shard_rank(dev, cfg, held, refs)
     return out
 
 
-def mesh_phase(torch, arch: str) -> dict:
-    """Phase 21: spawn the world, gate every rank's results, print them.
-    Returns what the kernels line needs."""
+def shard_refs_qwen(torch, dev, cfg, params) -> dict:
+    """Phase 22's single-device qwen3-0.6b reference, in the main process:
+    the forward logits of 4 x ``SHARD_SEQ`` tokens under FDP91_KERNEL."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import forward
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SHARD_SEQ),
+                           generator=torch.Generator().manual_seed(22))
+    with D.use_policy(FDP91_KERNEL), torch.no_grad():
+        logits = forward(params, cfg, {"tokens": tokens.to(dev)}, remat="none")
+    return {"qwen_tokens": tokens, "qwen_logits": logits[..., :cfg.vocab_size].cpu()}
+
+
+def recording_serve(torch, serve_mod):
+    """A context manager under which ``launch.serve.serve``'s decode steps
+    append their logits (on the host) to the list it yields."""
+    steps, step = [], serve_mod.decode_step
+
+    def recorded(*args, **kw):
+        logits, cache = step(*args, **kw)
+        steps.append(logits.to("cpu", copy=True))
+        return logits, cache
+
+    @contextlib.contextmanager
+    def ctx():
+        serve_mod.decode_step = recorded
+        try:
+            yield steps
+        finally:
+            serve_mod.decode_step = step
+    return ctx()
+
+
+def shard_refs_dbrx(torch, dev, mcfg, params, phase5_tokens) -> dict:
+    """Phase 22's single-device dbrx-132b references, in the main process
+    while it holds phase 5's weights (phase 18): phase 5's serve again with
+    each decode step's logits, and layer 0's MoE input on phase 5's prompts
+    (4 x 16 tokens, the prefill) with the local block's output, under
+    FDP91_KERNEL."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    t = time.perf_counter()
+    prompts = torch.randint(0, mcfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    with D.use_policy(FDP91_KERNEL), recording_serve(torch, serve_mod) as steps:
+        toks = serve_mod.serve(mcfg, params, prompts, GEN, device=dev)
+    if toks.tolist() != phase5_tokens:
+        fail("dbrx-132b's serve for phase 22's references != phase 5's tokens")
+    blk = params.layers[0]
+    with D.use_policy(FDP91_KERNEL), torch.no_grad():
+        x = params.embed[prompts.to(dev)]
+        h, _ = L.attention_block(L.rms_norm(x, blk.attn_norm, mcfg.norm_eps), blk.attn, mcfg,
+                                 positions=torch.arange(PROMPT, device=dev))
+        x = x + h
+        moe_x = L.rms_norm(x, blk.mlp_norm, mcfg.norm_eps)
+        moe_y = M.moe_block(moe_x, blk.moe, mcfg)
+    torch.cuda.synchronize()
+    log(f"phase 22's dbrx-132b references (phase 5's serve again, {len(steps)} decode "
+        f"steps' logits; layer 0's MoE on the 4 x {PROMPT} prefill) in "
+        f"{time.perf_counter() - t:.2f} s")
+    return {"dbrx_prompts": prompts, "dbrx_tokens": phase5_tokens,
+            "dbrx_step_logits": [l[..., :mcfg.vocab_size] for l in steps],
+            "moe_x": moe_x.cpu(), "moe_y": moe_y.cpu()}
+
+
+def shard_rank(dev, cfg, held: list, refs: dict) -> dict:
+    """Phase 22 on one rank (module docstring), after phase 21 in the same
+    world: ``held`` holds qwen3-0.6b's seed-0 weights (taken out, so that
+    they are freed before dbrx's draw); ``refs`` the main process's
+    single-device references and phases 3 and 5's tokens. Returns the
+    rank's checks, numbers and seconds by part."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch as D
+    from repro_torch.core.formats import FP32
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.launch.sharding import distribution_for, expert_take, make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import Transformer, block_of, forward, gather_block
+    from repro_torch.parallel import axes as A
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {"rank": r, "seconds": {}, "collectives": {}}
+    clock = [time.perf_counter()]
+    P91 = FDP91_KERNEL.default.acc
+    params = held.pop()
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+
+    # every collective of the phase timed on the host clock around
+    # synchronize, by op, bytes and dtype: [calls, seconds]
+    originals = {op: getattr(LM.DeviceMesh, op)
+                 for op in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")}
+
+    def timed(op, fn):
+        def call(self, x, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(self, x, *args, **kw)
+            torch.cuda.synchronize()
+            key = f"{op} {x.numel() * x.element_size()} {str(x.dtype).replace('torch.', '')}"
+            rec = out["collectives"].setdefault(key, [0, 0.0])
+            rec[0] += 1
+            rec[1] += time.perf_counter() - t0
+            return y
+        return call
+
+    for op, fn in originals.items():
+        setattr(LM.DeviceMesh, op, timed(op, fn))
+
+    # the Megatron MLP's K-split is a reduce dispatch: plain limbs + fdp_psum,
+    # no kernel launch
+    reduce_calls = [0]
+    dispatch_reduce = D._dispatch_reduce
+
+    def counted_reduce(*args, **kw):
+        reduce_calls[0] += 1
+        return dispatch_reduce(*args, **kw)
+
+    D._dispatch_reduce = counted_reduce
+
+    def counted(fn, kernels):
+        D.reset_sites_seen()
+        reduce_calls[0] = 0
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        calls = D.site_calls()
+        ragged = sum(v for s, v in calls.items() if s.startswith("moe_")
+                     and s != "moe_router")
+        counts = {"fdp_gemm": (K.fdp_gemm.launches,
+                               sum(calls.values()) - ragged - reduce_calls[0]),
+                  "fdp_ragged_gemm": (K.fdp_ragged_gemm.launches, ragged),
+                  "reduce_dispatches": reduce_calls[0]}
+        return res, dt, counts
+
+    meshes = {"1x4": make_mesh((1, n)), "2x2": make_mesh((2, n // 2))}
+
+    # -- (a) the collectives on CUDA tensors against host tensors --------------
+    gen = torch.Generator().manual_seed(220 + r)
+    x = torch.randn(4, 8, 12, generator=gen)
+    out["collectives_equal"] = {}
+    for name, mesh in meshes.items():
+        with A.use_mesh(mesh):
+            for axis in mesh.axis_names:
+                if mesh.axis_size(axis) == 1:
+                    continue
+                res = {}
+                for where in ("cuda", "cpu"):
+                    xd = x.to(dev) if where == "cuda" else x
+                    res[where] = {
+                        "all_gather": A.all_gather(xd, axis, axis=1, tiled=True),
+                        "psum_scatter": A.psum_scatter(xd, axis, scatter_dimension=0,
+                                                       tiled=True),
+                        "all_to_all": A.all_to_all(xd, axis, 0, 2, tiled=True),
+                        "axis_index": torch.tensor(A.axis_index(axis))}
+                for op in res["cuda"]:
+                    out["collectives_equal"][f"{name} {axis} {op}"] = torch.equal(
+                        res["cuda"][op].cpu(), res["cpu"][op])
+    out["staged"] = LM.staged_ops()
+    part("a: collectives on CUDA vs host")
+
+    # -- (b) qwen3-0.6b at full width ------------------------------------------
+    tokens = refs["qwen_tokens"].to(dev)
+    want = refs["qwen_logits"].to(dev)
+    bound = SHARD_TOL * float(want.abs().max())
+    out["sp_forward"] = {}
+    for name, mesh in meshes.items():
+        d_ = distribution_for(mesh, "fsdp")
+        with D.use_policy(FDP91_KERNEL), torch.no_grad():
+            y, dt, counts = counted(lambda: forward(params, cfg, {"tokens": tokens}, d_,
+                                                    remat="none"), [K.fdp_gemm])
+        with torch.no_grad():
+            got = gather_block(y, d_, SHARD_SEQ)[..., :cfg.vocab_size]
+            diff = (got - want).abs()
+            out["sp_forward"][name] = {
+                "seconds": dt, "max_abs_diff": float(diff.max()), "bound": bound,
+                "rows_equal": int((diff == 0).all(-1).sum()), "rows": BATCH * SHARD_SEQ,
+                "top1": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "launches": counts}
+        del y, got, diff
+        part(f"b: SP forward {name}")
+    del want
+    d22 = distribution_for(meshes["2x2"], "fsdp")
+    prompts = refs["qwen_prompts"].to(dev)
+    with D.use_policy(FDP91_KERNEL):
+        toks, dt, counts = counted(lambda: serve_mod.serve(cfg, params, prompts, GEN,
+                                                           device=dev, dist=d22), [K.fdp_gemm])
+    out["qwen_serve"] = {"equal": toks.tolist() == refs["qwen_serve_tokens"],
+                         "seconds": dt, "tok_s": BATCH * GEN / dt, "launches": counts}
+    part("b: serve 2x2")
+    xd = torch.randn(BATCH, 1, cfg.d_model, generator=torch.Generator().manual_seed(221)).to(dev)
+    mlp = params.layers[0].mlp
+    rows = block_of(d22, BATCH, 1)[0]
+    with D.use_policy(FDP91_KERNEL), torch.no_grad():
+        local = L.mlp_block(xd, mlp, cfg)
+        meg = L.mlp_block(xd[rows], mlp, cfg, d22)
+    out["megatron_equal"] = torch.equal(meg, local[rows])
+    del params, local, meg
+    torch.cuda.empty_cache()
+    part("b: Megatron block")
+
+    # -- (c) dbrx-132b at full width, 1 layer, the rank's slices ---------------
+    mcfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_LAYERS)
+    tp = distribution_for(meshes["1x4"], "fsdp")
+    tp_take, ep_take = expert_take(mcfg, tp, "tp"), expert_take(mcfg, tp, "ep")
+    ep_host = []
+
+    def take(name, t):            # the TP slices kept, the EP slices set aside
+        ep_host.append((name, ep_take(name, t).clone()))
+        return tp_take(name, t)
+
+    mp = Transformer(mcfg, torch.Generator().manual_seed(0), torch.float32, dev, take)
+    d, f = mcfg.d_model, mcfg.d_ff
+    ep = M.MoE(d, f, mcfg.n_experts, device=dev, take=ep_take)
+    with torch.no_grad():
+        for name, host in ep_host:      # init's move then scale, in place
+            getattr(ep, name).copy_(host).mul_((f if name == "w_out" else d) ** -0.5)
+        ep.router = mp.layers[0].moe.router
+    del ep_host
+    out["n_params"] = sum(p.numel() for p in mp.parameters()) + sum(
+        getattr(ep, w).numel() for w in ("w_in", "w_gate", "w_out"))
+    part("c: dbrx draw (TP and EP slices)")
+    dprompts = refs["dbrx_prompts"].to(dev)
+    out["dbrx_serve"] = {}
+    for name, d_ in (("1x4 tp", tp), ("2x2 decode_tp", distribution_for(meshes["2x2"],
+                                                                          "decode_tp"))):
+        with D.use_policy(FDP91_KERNEL), recording_serve(torch, serve_mod) as steps:
+            toks, dt, counts = counted(lambda: serve_mod.serve(mcfg, mp, dprompts, GEN,
+                                                               device=dev, dist=d_),
+                                       [K.fdp_gemm, K.fdp_ragged_gemm])
+        rows = block_of(d_, BATCH, 1)[0]
+        step_diff = [float((got[..., :mcfg.vocab_size] - ref[rows]).abs().max())
+                     for got, ref in zip(steps, refs["dbrx_step_logits"])]
+        out["dbrx_serve"][name] = {"equal": toks.tolist() == refs["dbrx_tokens"],
+                                   "seconds": dt, "tok_s": BATCH * GEN / dt,
+                                   "step_max_abs_diff": step_diff, "launches": counts}
+        part(f"c: serve {name}")
+    moe_x, moe_y = refs["moe_x"].to(dev), refs["moe_y"].to(dev)
+    rows, pos = block_of(tp, BATCH, PROMPT)
+    with D.use_policy(FDP91_KERNEL), torch.no_grad():
+        y = gather_block(M.moe_block(moe_x[rows, pos], mp.layers[0].moe, mcfg, tp,
+                                     seq_sharded=True), tp, PROMPT)
+        ye, dropped = M.moe_block_ep(moe_x[rows, pos], ep, mcfg, tp,
+                                     capacity_factor=SHARD_EP_CF, return_dropped=True)
+        ye = gather_block(ye, tp, PROMPT)
+    rtol, atol = SHARD_MOE_TOL
+    out["moe_tp"] = {"close": bool(torch.allclose(y, moe_y, rtol=rtol, atol=atol)),
+                     "max_abs_diff": float((y - moe_y).abs().max())}
+    out["moe_ep"] = {"equal": torch.equal(ye, moe_y),
+                     "dropped": int(meshes["1x4"].all_reduce(dropped, "model")),
+                     "max_abs_diff": float((ye - moe_y).abs().max())}
+    part("c: MoE blocks (TP, EP)")
+    out["peak_path_bytes"] = torch.cuda.max_memory_allocated()
+    # the sorted-segment kernel at the f/4 shapes against its plain version
+    # (not counted: this compares, the serves above are the path)
+    g = torch.Generator().manual_seed(222 + r)
+    # about a decode step's rows (4 tokens x top-4 over 16 experts), with
+    # empty groups, in another order on each rank
+    sizes = ((torch.arange(mcfg.n_experts) + r) % 3).to(torch.int32)
+    T = int(sizes.sum())
+    xs = torch.randn(T, d, generator=g).to(dev)
+    hs = torch.randn(T, f // n, generator=g).to(dev)
+    sizes = sizes.to(dev)
+    blk = mp.layers[0].moe
+    out["ragged_equal"] = {}
+    for site, (a, w) in {"moe_in": (xs, blk.w_in), "moe_out": (hs, blk.w_out)}.items():
+        got = K.fdp_ragged_gemm(a, w, sizes, spec=P91, fmt=FP32)
+        plain = K.fdp_ragged_gemm_plain(a, w, sizes, spec=P91, fmt=FP32)
+        out["ragged_equal"][f"{site} {tuple(a.shape)} x {tuple(w.shape)}"] = torch.equal(
+            got, plain)
+    part("c: sorted-segment kernel == plain at f/4")
+    for op, fn in originals.items():
+        setattr(LM.DeviceMesh, op, fn)
+    D._dispatch_reduce = dispatch_reduce
+    del mp, ep
+    torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    out["t_end"] = time.perf_counter()
+    return out
+
+
+def mesh_phase(torch, arch: str, refs: dict) -> dict:
+    """Phases 21 and 22: spawn the world, gate every rank's results, print
+    them. Returns what the kernels line needs."""
     from repro_torch.launch.mesh import spawn
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    ranks = spawn(mesh_rank, MESH_WORLD, device="cuda:0", args=(arch,),
+    ranks = spawn(mesh_rank, MESH_WORLD, device="cuda:0", args=(arch, refs),
                   timeout=MESH_TIMEOUT, collective_timeout=MESH_COLLECTIVE_TIMEOUT)
-    wall = time.perf_counter() - t
+    t_end = time.perf_counter()
+    p22_wall = t_end - max(r["t_end"] for r in ranks)
+    wall = t_end - t - p22_wall
     r0 = ranks[0]
     for r in ranks:
         tag = f"rank {r['rank']}"
@@ -1925,8 +2266,98 @@ def mesh_phase(torch, arch: str) -> dict:
             f"{len(ss)} calls over the ranks, {min(ss):.3f}-{max(ss):.3f} s a call")
     for name in r0["seconds"]:
         log(f"  {name}: " + ", ".join(f"{r['seconds'][name]:.2f}" for r in ranks) + " s by rank")
+    p22 = shard_report([r["p22"] for r in ranks], p22_wall)
     return {"launches": sum(r["steps"]["fixed 1x4"]["launches"] for r in ranks),
-            "wall_s": wall, "ranks": ranks}
+            "wall_s": wall, "ranks": [{k: v for k, v in r.items() if k != "p22"}
+                                      for r in ranks],
+            "p22_wall_s": p22_wall, "p22": p22}
+
+
+def shard_report(ranks: list, wall: float) -> dict:
+    """Phase 22: gate every rank's results (module docstring), print them.
+    Returns the phase's launches by kernel and its numbers."""
+    r0 = ranks[0]
+    launches = collections.Counter()
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        bad = [k for k, ok in r["collectives_equal"].items() if not ok]
+        if bad:
+            fail(f"{tag}: collectives on CUDA tensors != on host tensors: {bad}")
+        runs = {f"SP forward {k}": v["launches"] for k, v in r["sp_forward"].items()}
+        runs["qwen3-0.6b serve 2x2"] = r["qwen_serve"]["launches"]
+        runs.update({f"dbrx-132b serve {k}": v["launches"]
+                     for k, v in r["dbrx_serve"].items()})
+        for run, counts in runs.items():
+            for kernel in ("fdp_gemm", "fdp_ragged_gemm"):
+                n, want = counts[kernel]
+                if n != want or (n == 0 and (kernel == "fdp_gemm" or "dbrx" in run)):
+                    fail(f"{tag}: {run} launched {kernel} {n} times, its FDP dispatches "
+                         f"were {want}")
+                launches[kernel] += n
+        for name, sp in r["sp_forward"].items():
+            if not sp["max_abs_diff"] <= sp["bound"]:
+                fail(f"{tag}: qwen3-0.6b's SP forward on {name}: max |logit diff| "
+                     f"{sp['max_abs_diff']:.3e} > {sp['bound']:.3e} (1e-4 x max |logit|)")
+        if not r["qwen_serve"]["equal"]:
+            fail(f"{tag}: qwen3-0.6b's serve on 2x2 != phase 3's tokens")
+        if not r["megatron_equal"]:
+            fail(f"{tag}: the Megatron mlp_block != the local block (FDP91_KERNEL)")
+        for name, srv in r["dbrx_serve"].items():
+            if not srv["equal"]:
+                fail(f"{tag}: dbrx-132b's serve on {name} != phase 5's tokens (largest "
+                     f"|logit diff| by step {srv['step_max_abs_diff']})")
+        if not r["moe_tp"]["close"]:
+            fail(f"{tag}: the sequence-sharded TP moe_block is not within rtol/atol "
+                 f"{SHARD_MOE_TOL} of the local block (max |diff| "
+                 f"{r['moe_tp']['max_abs_diff']:.3e})")
+        if not r["moe_ep"]["equal"] or r["moe_ep"]["dropped"]:
+            fail(f"{tag}: moe_block_ep != the local block (max |diff| "
+                 f"{r['moe_ep']['max_abs_diff']:.3e}) or dropped {r['moe_ep']['dropped']} rows")
+        bad = [k for k, ok in r["ragged_equal"].items() if not ok]
+        if bad:
+            fail(f"{tag}: the sorted-segment kernel != its plain version at {bad}")
+    staged = sorted(op for op, st in r0["staged"].items() if st)
+    log(f"phase 22 in phase 21's world, {wall:.2f} s after its last rank ended phase 21; "
+        f"gloo on CUDA tensors stages {staged or 'nothing'} through host tensors (probed: "
+        f"{sorted(r0['staged'])})")
+    log(f"(a) all_gather, psum_scatter, all_to_all and axis_index over each axis of 1x4 "
+        f"and 2x2 on CUDA tensors torch.equal the same on host tensors, every rank")
+    for name, sp in r0["sp_forward"].items():
+        log(f"(b) qwen3-0.6b SP forward 4 x {SHARD_SEQ} on {name} (FDP91_KERNEL), gathered: "
+            f"max |diff| {max(r['sp_forward'][name]['max_abs_diff'] for r in ranks):.3e} "
+            f"(bound {sp['bound']:.3e}), rows bit-equal {sp['rows_equal']}/{sp['rows']}, "
+            f"top-1 agreement {100 * sp['top1']:.2f}%; "
+            + ", ".join(f"{r['sp_forward'][name]['seconds']:.2f}" for r in ranks)
+            + " s by rank")
+    log(f"    serve on 2x2 (Megatron MLP at decode, fdp_psum) == phase 3's tokens on every "
+        f"rank: " + ", ".join(f"{r['qwen_serve']['tok_s']:.2f}" for r in ranks)
+        + f" tok/s by rank; the Megatron mlp_block torch.equal the local block")
+    for name in r0["dbrx_serve"]:
+        srv = r0["dbrx_serve"][name]
+        log(f"(c) dbrx-132b serve {name} == phase 5's tokens on every rank: "
+            + ", ".join(f"{r['dbrx_serve'][name]['tok_s']:.2f}" for r in ranks)
+            + " tok/s by rank; largest |logit diff| by step against phase 5's: "
+            + ", ".join(f"{x:.2e}" for x in srv["step_max_abs_diff"]))
+    log(f"    layer 0's MoE on the 4 x {PROMPT} prefill input: sequence-sharded TP max |diff| "
+        f"{max(r['moe_tp']['max_abs_diff'] for r in ranks):.3e} (within rtol/atol "
+        f"{SHARD_MOE_TOL}); moe_block_ep torch.equal, 0 rows dropped; the sorted-segment "
+        f"kernel torch.equal its plain version at {sorted(r0['ragged_equal'])}")
+    log(f"    a rank's parameters (replicated, TP and EP slices): {r0['n_params'] / 1e9:.3f} G "
+        f"f32; peak " + ", ".join(f"{r['peak_path_bytes'] / 1e9:.2f}" for r in ranks)
+        + " GB by rank before the plain version's check at f/4, "
+        + ", ".join(f"{r['peak_bytes'] / 1e9:.2f}" for r in ranks) + " GB with it")
+    for name in r0["seconds"]:
+        log(f"  {name}: " + ", ".join(f"{r['seconds'][name]:.2f}" for r in ranks) + " s by rank")
+    by = collections.defaultdict(lambda: [0, 0.0])
+    for r in ranks:
+        for key, (calls, sec) in r["collectives"].items():
+            by[key][0] += calls
+            by[key][1] += sec
+    for key, (calls, sec) in sorted(by.items(), key=lambda kv: -kv[1][1])[:12]:
+        op, nbytes, dtype = key.split()
+        log(f"  {op} of {int(nbytes)} B {dtype}: {calls} calls over the ranks, {sec:.3f} s")
+    return {"launches": dict(launches), "wall_s": wall, "staged": r0["staged"],
+            "ranks": ranks}
 
 
 def main() -> None:
@@ -3614,6 +4045,10 @@ def main() -> None:
     params = weights(torch, mcfg, dev)                    # phase 5's weights
     eng_d = engine_phase(torch, dev, mcfg, params, dbrx_requests, n_slots=2, max_len=64,
                          policy=FDP91_KERNEL, label="dbrx-132b continuous engine")
+    # phase 22's dbrx references, while the main process holds these weights
+    t_ref = time.perf_counter()
+    shard_refs = shard_refs_dbrx(torch, dev, mcfg, params, dbrx["tokens"])
+    ref18_s = time.perf_counter() - t_ref
     del params
     drop_weights(mcfg)
     torch.cuda.empty_cache()
@@ -3674,17 +4109,33 @@ def main() -> None:
     sched = schedules_phase(torch, dev, cfg, params, qwen["tokens"], eng_q["tokens"],
                             qwen_requests, qwen["tok_s"], eng_q["result"]["graph"]["tok_s"])
     del params
-    drop_weights(cfg)
     torch.cuda.empty_cache()
     autotune_launches_total = tailoring["autotune"]["launches"] + sched["autotune_launches"]
 
     # -- 21. data parallelism: four ranks on the card -------------------------
     phase("21")
-    mesh = mesh_phase(torch, cfg.name)
+    t_ref = time.perf_counter()
+    params = weights(torch, cfg, dev)                     # phase 3's weights
+    shard_refs.update(shard_refs_qwen(torch, dev, cfg, params))
+    shard_refs["qwen_prompts"] = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                               generator=torch.Generator().manual_seed(1))
+    shard_refs["qwen_serve_tokens"] = qwen["tokens"]
+    del params
+    drop_weights(cfg)
+    torch.cuda.empty_cache()
+    ref21_s = time.perf_counter() - t_ref
+    mesh = mesh_phase(torch, cfg.name, shard_refs)
+    # phase 22 ran in phase 21's world: its seconds run from the last rank's
+    # end of phase 21 to the world's end, and its references' seconds (in
+    # the main process, during phases 18 and 21) count in it, not there
+    p22_s = mesh["p22_wall_s"] + ref18_s + ref21_s
 
     phase("")
+    PHASE_S["18"] -= ref18_s
+    PHASE_S["21"] -= mesh["p22_wall_s"] + ref21_s
+    PHASE_S["22"] = p22_s
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-21 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-22 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -3698,7 +4149,7 @@ def main() -> None:
                      + sum(engine_launches["fdp_gemm"].values()) + routed_launches
                      + monitored_launches
                      + autotune_launches_total + sched["dense_launches_on_persisted"]
-                     + mesh["launches"]),
+                     + mesh["launches"] + mesh["p22"]["launches"]["fdp_gemm"]),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -3716,7 +4167,9 @@ def main() -> None:
                              "serve and graph engine on the cuda zoo (phase 20)":
                                  sched["dense_launches_on_persisted"],
                              "qwen3-0.6b mesh step, 1x4, summed over 4 ranks on the "
-                             "card (phase 21)": mesh["launches"]},
+                             "card (phase 21)": mesh["launches"],
+                             "sharded forward and serves, summed over 4 ranks on the card "
+                             "(phase 22)": mesh["p22"]["launches"]["fdp_gemm"]},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -3741,10 +4194,13 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",
         "replaces": "src/repro/kernels/fdp_gemm.py:282",
         "launches": (dbrx["launches"]["fdp_ragged_gemm"] + train["launches"]["fdp_ragged_gemm"]
-                     + sum(engine_launches["fdp_ragged_gemm"].values())),
+                     + sum(engine_launches["fdp_ragged_gemm"].values())
+                     + mesh["p22"]["launches"]["fdp_ragged_gemm"]),
         "launches_by_path": {"dbrx-132b serve": dbrx["launches"]["fdp_ragged_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_ragged_gemm"],
-                             **engine_launches["fdp_ragged_gemm"]},
+                             **engine_launches["fdp_ragged_gemm"],
+                             "dbrx-132b TP serves, summed over 4 ranks on the card "
+                             "(phase 22)": mesh["p22"]["launches"]["fdp_ragged_gemm"]},
         "graph_replays_traced": replay_events["fdp_ragged_gemm"],
         "max_abs_err": ragged_err,
         "ms": moe_in["ms"], "plain_ms": moe_in["plain_ms"], "bound_ms": moe_in["bound_ms"],

@@ -12,8 +12,8 @@ into place (atomic on POSIX), so a crash mid-save never corrupts the latest
 checkpoint; ``load_latest`` skips checkpoints whose manifest or checksums
 do not validate. Tensors are saved from the device as numpy arrays and come
 back as numpy arrays; the caller moves them to its device. Restoring onto
-a mesh (the reference's ``shardings``) waits for the sharded model (ROADMAP
-queue 1, *Multi-device*, the sharded model): a data-parallel rank holds
+a mesh (the reference's ``shardings``) waits for ROADMAP queue 1,
+*Multi-device*, placement and entry points: a data-parallel rank holds
 every parameter whole and loads as one device does.
 """
 

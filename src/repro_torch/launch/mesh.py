@@ -23,12 +23,23 @@ host with ``torch.multiprocessing`` (the ``spawn`` start method) and a
 rank runs ``fn(device, *args)`` and its return value comes back in a list
 by rank. The backend follows one rule: NCCL where every rank has a card of
 its own, gloo on the CPU and wherever ranks share a CUDA device (NCCL
-refuses a communicator whose ranks share a device). Gloo runs
-``all_reduce``, ``broadcast`` and ``barrier`` on CUDA tensors, staged
-through host memory, which is all the collectives and the data-parallel
-step need. The spawn prints its backend. Every collective times out after
-``collective_timeout`` seconds and the whole world after ``timeout``; a
-rank that raises fails the spawn with that rank's traceback.
+refuses a communicator whose ranks share a device). The spawn prints its
+backend. Every collective times out after ``collective_timeout`` seconds
+and the whole world after ``timeout``; a rank that raises fails the spawn
+with that rank's traceback.
+
+Besides ``all_reduce``, a mesh runs the sharded model's collectives over one
+named axis: ``all_gather`` (tiled), ``reduce_scatter`` (the sum, tiled),
+``all_to_all`` and ``axis_index``. Gloo runs ``all_reduce``, ``broadcast``
+and ``barrier`` on CUDA tensors (through host memory); whether it runs the
+other three there depends on the torch build (2.11.0+cu128 runs all three
+on an H100). So the first such call on a
+CUDA tensor in a gloo group probes the op once, collectively (a small
+tensor, its result checked, the verdict agreed over the group), and an op
+the backend refuses or gets wrong is staged: its CUDA input copied to the
+host, the op run on host tensors, the result copied back. World rank 0
+prints each verdict once (``staged_ops()`` returns them). NCCL stages
+nothing, and no op ever falls back to another collective.
 
 No analogue: ``make_production_mesh`` builds the reference's 16x16 TPU pod
 (256 chips, or two pods under a leading "pod" axis), which one host with
@@ -118,6 +129,63 @@ class DeviceMesh:
         have none)."""
         return {a: dist.get_backend(g) for a, g in self._groups.items()}
 
+    def _group(self, axis: str):
+        """The process group along ``axis``, None for a size-1 axis."""
+        return self._groups.get(self._axes(axis)[0])
+
+    def axis_index(self, axes: Axes) -> int:
+        """This rank's coordinate along ``axes``: for several axes, the
+        flattened index over them in the given order (as
+        ``jax.lax.axis_index`` of a tuple)."""
+        idx = 0
+        for a in self._axes(axes):
+            i = self.axis_names.index(a)
+            idx = idx * self.shape[i] + self.coords[i]
+        return idx
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in axis
+        order (``jax.lax.all_gather(..., tiled=True)``)."""
+        n, group = self.axis_size(axis), self._group(axis)
+        if group is None:
+            return x
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+        _run("all_gather", group, out, xt)
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """``x`` summed over ``axis``, this rank's block of ``dim`` (split in
+        axis-size blocks) kept (``jax.lax.psum_scatter(..., tiled=True)``)."""
+        n, group = self.axis_size(axis), self._group(axis)
+        if group is None:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"reduce_scatter of {x.shape[dim]} along dim {dim} over "
+                             f"{n} ranks of {axis!r}")
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
+        _run("reduce_scatter", group, out, xt)
+        return out.movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``x`` split in axis-size chunks along ``split_dim``, chunk i sent to
+        the axis's rank i, the received chunks concatenated along
+        ``concat_dim`` in source order (``jax.lax.all_to_all(..., tiled=True)``)."""
+        n, group = self.axis_size(axis), self._group(axis)
+        if group is None:
+            return x
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all of {x.shape[split_dim]} along dim {split_dim} "
+                             f"over {n} ranks of {axis!r}")
+        xt = x.movedim(split_dim, 0).contiguous()
+        out = torch.empty_like(xt)
+        _run("all_to_all", group, out, xt)
+        # out: n received chunks, by source, each a chunk of x along split_dim
+        chunks = out.reshape((n, xt.shape[0] // n) + tuple(xt.shape[1:])).movedim(1, split_dim + 1)
+        return torch.cat(list(chunks), dim=concat_dim)
+
     def all_reduce(self, x: torch.Tensor, axes: Axes, op: str = "sum", *,
                    inplace: bool = False) -> torch.Tensor:
         """``x`` reduced over ``axes``, one all-reduce per axis in the mesh's
@@ -131,6 +199,74 @@ class DeviceMesh:
             if axis in axes and axis in self._groups:
                 dist.all_reduce(out, op=_OPS[op], group=self._groups[axis])
         return out
+
+
+# op -> (run on host tensors?) for CUDA tensors in gloo groups, once probed
+_STAGED: dict = {}
+
+
+# the single-tensor forms under their newer names where the build has them
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+
+
+def _call(op: str, group, out: torch.Tensor, inp: torch.Tensor) -> None:
+    if op == "all_gather":
+        _ALL_GATHER(out, inp, group=group)
+    elif op == "reduce_scatter":
+        _REDUCE_SCATTER(out, inp, op=dist.ReduceOp.SUM, group=group)
+    else:
+        dist.all_to_all_single(out, inp, group=group)
+
+
+def _probe(op: str, group, device: torch.device) -> bool:
+    """Whether gloo must stage ``op`` for CUDA tensors: run it once on a small
+    tensor of the group's ranks and check the result. Collective over the
+    group (every rank probes at the same call), the verdict agreed with an
+    all-reduce on host tensors."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    inp = torch.arange(2 * n, dtype=torch.float32) + 100 * me
+    if op == "all_gather":
+        inp, want = inp[:2], torch.cat([torch.arange(2.0) + 100 * r for r in range(n)])
+    elif op == "reduce_scatter":
+        want = sum(torch.arange(2 * n, dtype=torch.float32) + 100 * r for r in range(n))
+        want = want[2 * me:2 * me + 2]
+    else:
+        want = torch.cat([torch.arange(2.0) + 2 * me + 100 * r for r in range(n)])
+    out = torch.empty_like(want, device=device)
+    try:
+        _call(op, group, out, inp.to(device))
+        ok = torch.equal(out.cpu(), want)
+    except (RuntimeError, NotImplementedError):    # a refusal, alike on every rank
+        ok = False
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    staged = not bool(flag.item())
+    if world_rank() == 0:
+        print(f"mesh: gloo on CUDA tensors: {op} "
+              + ("staged through host tensors (the backend refuses it or gets it wrong)"
+                 if staged else "runs on the device tensors"), flush=True)
+    return staged
+
+
+def _run(op: str, group, out: torch.Tensor, inp: torch.Tensor) -> None:
+    """``op`` into ``out`` (both contiguous), staged through host tensors
+    where gloo refuses it on CUDA tensors (module docstring)."""
+    if inp.is_cuda and dist.get_backend(group) == "gloo":
+        if op not in _STAGED:
+            _STAGED[op] = _probe(op, group, inp.device)
+        if _STAGED[op]:
+            host = torch.empty(out.shape, dtype=out.dtype)
+            _call(op, group, host, inp.cpu())
+            out.copy_(host)
+            return
+    _call(op, group, out, inp)
+
+
+def staged_ops() -> dict:
+    """op -> whether this process stages it for CUDA tensors in gloo groups
+    (probed ops only)."""
+    return dict(_STAGED)
 
 
 def make_test_mesh(shape=(2, 2), axes=DEFAULT_AXES) -> DeviceMesh:

@@ -57,7 +57,8 @@ from repro_torch.core.dispatch import (FDP91, MXU_BF16, MXU_FP32, GemmConfig,
 from repro_torch.core.formats import FP32
 from repro_torch.core.schedules import preload_schedules
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init, init_cache, prefill
+from repro_torch.models import LOCAL, decode_step, init, init_cache, prefill
+from repro_torch.models.transformer import block_of, gather_block
 
 # Every site through the hand-written FDP GEMM kernel at the paper's
 # <30,30,-30> 91-bit accumulator (FDP91's numerics in ``pallas`` mode).
@@ -81,23 +82,27 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
 
 
 @torch.inference_mode()
-def serve(cfg, params, prompts, gen_len: int, device=None) -> torch.Tensor:
+def serve(cfg, params, prompts, gen_len: int, device=None, dist=LOCAL) -> torch.Tensor:
     """prompts: (B, S) int. Greedy decode gen_len tokens. Returns (B, gen)
-    int64 on ``device`` (CUDA unless the caller asks for another)."""
+    int64 on ``device`` (CUDA unless the caller asks for another). On a mesh
+    (``dist``, the experts the rank's slices) every rank serves its rows
+    (``transformer.block_of``) and returns the global tokens."""
     dev = resolve_device(device)
     if not _on(params.embed, dev):
         raise ValueError(f"params are on {params.embed.device}, serving on {dev}")
     prompts = torch.as_tensor(prompts, device=dev)
     B, S = prompts.shape
-    cache = init_cache(cfg, B, max_len=S + gen_len, dtype=torch.float32, device=dev)
-    last_logits, cache = prefill(params, cfg, {"tokens": prompts}, cache)
+    rows = block_of(dist, B, 1)[0]
+    cache = init_cache(cfg, rows.stop - rows.start, max_len=S + gen_len,
+                       dtype=torch.float32, device=dev)
+    last_logits, cache = prefill(params, cfg, {"tokens": prompts}, cache, dist)
     out = []
     tok = torch.argmax(last_logits, dim=-1)[:, None]
     for _ in range(gen_len):
         out.append(tok)
-        logits, cache = decode_step(params, cfg, cache, tok)
+        logits, cache = decode_step(params, cfg, cache, tok, dist)
         tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
-    return torch.cat(out, dim=1)
+    return gather_block(torch.cat(out, dim=1), dist, 1)
 
 
 def _zoo_envelope(plans_dir: str, arch: str):

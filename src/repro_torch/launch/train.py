@@ -16,8 +16,8 @@ plan assigns ``opt.m@state``/``opt.v@state``):
 ``--policy`` names a uniform policy instead; passing both is an error.
 ``--opt-precision`` wins over the plan's moment sites. ``--mesh``/
 ``--profile`` (the reference's GSPMD ``fsdp`` profile through
-``make_train_step``) wait for the sharded model (ROADMAP queue 1,
-*Multi-device*, the sharded model); data-parallel training over a world of
+``make_train_step``) wait for ROADMAP queue 1, *Multi-device*, placement
+and entry points; data-parallel training over a world of
 ranks is ``train.loop.make_mesh_train_step``.
 Without ``--ckpt`` checkpoints go to a temporary directory that is removed
 at the end. The plan cache is preloaded from the device backend's schedule

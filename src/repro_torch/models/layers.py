@@ -1,10 +1,18 @@
-"""Transformer layer substrate (counterpart of ``repro.models.layers``,
-single device). Every matmul routes through ``repro_torch.core.dispatch``
-so numerics policies apply to the whole model.
+"""Transformer layer substrate (counterpart of ``repro.models.layers``).
+Every matmul routes through ``repro_torch.core.dispatch`` so numerics
+policies apply to the whole model.
 
 Layouts are the reference's: weights (K, N) with ``dense(x, w) = gemm(x,
 w)``; q/k/v (B, H, S, hd). Parameters live in ``nn.Module``s whose
 attribute names are the reference's dict keys.
+
+On a mesh (``Distribution`` with one) the blocks run explicit SPMD: each
+rank's activation is its block of the reference's global tensor, in the
+layout the reference's sharding constraint names at that point (batch over
+the dp axes; the sequence over ``tp_axis`` when ``seq_sharded``), and data
+moves only where that layout changes, through the named collectives of
+``parallel.axes`` (differentiable; their adjoints are listed there).
+Weights are replicated, apart from the experts (``launch.sharding``).
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import dispatch
+from repro_torch.parallel.axes import all_gather, axis_index, pvary, shard, use_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -25,11 +34,11 @@ from repro_torch.core import dispatch
 @dataclasses.dataclass(frozen=True)
 class Distribution:
     """The reference's ``Distribution``, field for field. Without a mesh it
-    is the single-device run (``LOCAL``). With one, ``constrain`` raises:
-    placing activations over a mesh is the sharded model (ROADMAP queue 1,
-    *Multi-device*, the sharded model), and running on one device silently
-    would hide that. Data parallelism needs no placement: it runs the whole
-    model a rank (``train.loop.make_mesh_train_step``)."""
+    is the single-device run (``LOCAL``). With one, the blocks run the
+    rank's block of every activation (module docstring); data parallelism
+    alone runs the whole model a rank (``train.loop.make_mesh_train_step``).
+    The CLI's ``--mesh``/``--profile`` and the parameter placements wait for
+    ROADMAP queue 1, *Multi-device*, placement and entry points."""
 
     mesh: object = None                       # launch.mesh.DeviceMesh | None
     dp_axes: tuple = ("data",)                # batch axes (may include "pod")
@@ -42,12 +51,18 @@ class Distribution:
     def dp(self):
         return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
 
+    @property
+    def tp(self) -> int:
+        """Ranks along ``tp_axis`` (1 without a mesh)."""
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.mesh.axis_size(self.tp_axis)
+
     def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
-        if self.mesh is None:
-            return x
-        raise NotImplementedError(
-            "placing activations over a mesh waits for the sharded model "
-            "(ROADMAP queue 1, *Multi-device*)")
+        """The identity, with a mesh too: at the reference's call sites the
+        rank's block already has the placement ``spec`` names (the blocks
+        move data explicitly where the layout changes)."""
+        return x
 
 
 LOCAL = Distribution()
@@ -59,15 +74,22 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=True)
 
 
-def _normal(shape, scale, gen, dtype, device) -> nn.Parameter:
+def _normal(shape, scale, gen, dtype, device, take=None) -> nn.Parameter:
     """A parameter drawn from ``gen``, a CPU generator, on the CPU, moved to
     ``device`` and scaled there, so that one seed gives the same weights on
     every device (a correctly rounded multiply gives the same bits on both).
-    The host holds one tensor at a time. ``gen=None`` leaves it
-    uninitialized (to be copied in)."""
+    The host holds one tensor at a time. ``take``, when given, cuts the host
+    draw to the rank's slice before the move (``launch.sharding``), so the
+    slice is the full draw's. ``gen=None`` leaves it uninitialized (to be
+    copied in), at the slice's shape."""
     if gen is None:
+        if take is not None:
+            shape = take(torch.empty(shape, device="meta")).shape
         return _param(torch.empty(shape, dtype=dtype, device=device))
-    return _param(torch.randn(shape, generator=gen, dtype=dtype).to(device).mul_(scale))
+    t = torch.randn(shape, generator=gen, dtype=dtype)
+    if take is not None:
+        t = take(t).contiguous()
+    return _param(t.to(device).mul_(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -220,17 +242,27 @@ def init_attention(gen, cfg, dtype=torch.float32, device=None) -> Attention:
     return Attention(cfg, gen, dtype, device)
 
 
-def attention_block(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
-                    prefix_len: int = 0, positions: Optional[torch.Tensor] = None,
-                    kv_cache: Optional[dict] = None, site: str = "attn"):
+def attention_block(x: torch.Tensor, p: Attention, cfg, dist: Distribution = LOCAL, *,
+                    causal: bool = True, prefix_len: int = 0,
+                    positions: Optional[torch.Tensor] = None,
+                    kv_cache: Optional[dict] = None, site: str = "attn",
+                    seq_sharded: bool = False):
     """Full attention sub-block. Returns (out, new_kv_cache | None).
 
     kv_cache: {"k": (B,Hkv,Smax,hd), "v": ..., "len": int or 0-d integer
     tensor on the device, "start": optional (B,)} for decode. The new k/v
     are written into the cache tensors in place at positions [len, len + S)
     (``index_copy_`` at a device index: the reference returns updated
-    copies); the returned cache shares them."""
+    copies); the returned cache shares them.
+
+    With ``seq_sharded`` (a mesh, x the rank's block of S / tp positions, no
+    cache), q stays the rank's block and K and V are all-gathered over
+    ``tp_axis`` along the sequence, as the reference's constraints place
+    them: the block's positions, for RoPE and the causal mask, start at
+    ``axis_index(tp) * S``. Otherwise every rank attends its own rows."""
     B, S, d = x.shape
+    sp = seq_sharded and kv_cache is None and dist.tp > 1
+    offset = dist.mesh.axis_index(dist.tp_axis) * S if sp else 0
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p.wq, site + "_q", p.bq)
     q = q.reshape(B, S, H, hd).transpose(1, 2)
@@ -244,9 +276,14 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
 
     if positions is None:
-        positions = torch.arange(S, device=x.device)
+        positions = offset + torch.arange(S, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if sp:
+        # SP: q stays sequence-sharded; K/V are the (all-gathered) small side
+        with use_mesh(dist.mesh):
+            k = all_gather(k, dist.tp_axis, axis=2, tiled=True)
+            v = all_gather(v, dist.tp_axis, axis=2, tiled=True)
 
     new_cache = None
     if kv_cache is not None:
@@ -261,7 +298,7 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, *, causal: bool = True,
         new_cache = {"k": kfull, "v": vfull, "len": ln + S}
     else:
         out = attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
-                        prefix_len=prefix_len, site=site)
+                        prefix_len=prefix_len, q_offset=offset, site=site)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return dense(out, p.wo, site + "_o"), new_cache
 
@@ -282,8 +319,33 @@ def init_mlp(gen, d: int, f: int, dtype=torch.float32, device=None) -> MLP:
     return MLP(d, f, gen, dtype, device)
 
 
-def mlp_block(x: torch.Tensor, p: MLP, cfg, site: str = "mlp") -> torch.Tensor:
-    h = dense(x, p.w_in, site + "_in")
-    g = dense(x, p.w_gate, site + "_gate")
-    h = activate(g, cfg.act) * h
-    return dense(h, p.w_out, site + "_out")
+def mlp_block(x: torch.Tensor, p: MLP, cfg, dist: Distribution = LOCAL,
+              site: str = "mlp", *, seq_sharded: bool = False) -> torch.Tensor:
+    """The GLU MLP. On a mesh, the reference's two patterns: ``"sp"`` with
+    the sequence sharded runs the rank's rows against the replicated
+    weights; otherwise (decode always) the Megatron form: ``w_in``/``w_gate``
+    sliced by columns and ``w_out`` by rows over ``tp_axis``, the output
+    summed over it by ``gemm(reduce_axis=)`` on the rows flattened to 2-D,
+    exactly (``fdp_psum``) in the FDP modes. A sharded sequence is
+    all-gathered first and the rank's block kept after."""
+    n = dist.tp
+    if n == 1 or (dist.mlp_pattern == "sp" and seq_sharded):
+        h = dense(x, p.w_in, site + "_in")
+        g = dense(x, p.w_gate, site + "_gate")
+        h = activate(g, cfg.act) * h
+        return dense(h, p.w_out, site + "_out")
+    tp = dist.tp_axis
+    f = p.w_in.shape[1]
+    if f % n:
+        raise ValueError(f"the Megatron MLP splits d_ff {f} over {n} ranks of {tp!r}")
+    with use_mesh(dist.mesh):
+        fl, i = f // n, axis_index(tp)
+        cols = slice(i * fl, (i + 1) * fl)
+        xf = all_gather(x, tp, axis=1, tiled=True) if seq_sharded else pvary(x, tp)
+        h = dense(xf, p.w_in[:, cols], site + "_in")
+        g = dense(xf, p.w_gate[:, cols], site + "_gate")
+        h = activate(g, cfg.act) * h
+        B, S = h.shape[:2]
+        out = dispatch.gemm(h.reshape(B * S, fl), p.w_out[cols], site=site + "_out",
+                            reduce_axis=tp).reshape(B, S, -1).to(x.dtype)
+        return shard(out, tp, 1) if seq_sharded else out

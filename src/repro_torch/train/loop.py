@@ -25,8 +25,9 @@ on the fixed-point grid as an exact int32 all-reduce when given a spec, and
 ``make_mesh_train_step`` runs the whole model on each rank's slice of the
 global batch, so one step gives the same bits on every factorization of
 the same ranks. ``make_train_step`` on a ``Distribution`` with a mesh (the
-reference's GSPMD profiles) waits for the sharded model (ROADMAP queue 1,
-*Multi-device*, the sharded model).
+reference's GSPMD profiles, which place the parameters) waits for ROADMAP
+queue 1, *Multi-device*, placement and entry points; the sharded forward
+and its gradients run today (``models.transformer.forward(..., dist)``).
 """
 
 from __future__ import annotations
@@ -128,9 +129,9 @@ def make_train_step(cfg, opt: Optimizer, dist: L.Distribution = L.LOCAL, *,
     no mesh (module docstring)."""
     if dist.mesh is not None:
         raise NotImplementedError(
-            "make_train_step over a mesh (the GSPMD profiles) waits for the sharded "
-            "model (ROADMAP queue 1, *Multi-device*); data parallelism is "
-            "make_mesh_train_step")
+            "make_train_step over a mesh (the GSPMD profiles) waits for ROADMAP "
+            "queue 1, *Multi-device*, placement and entry points; data parallelism "
+            "is make_mesh_train_step")
     if numerics_policy is None:
         numerics_policy = dist.numerics_policy
     loss_fn = make_loss_fn(cfg, z_loss=z_loss, remat=remat)

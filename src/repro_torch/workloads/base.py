@@ -23,8 +23,8 @@ strings (``search(validators=build_validators(("grad", "logits"), ctx))``).
 A ``WorkloadContext`` names the device its validators run on: CUDA unless
 the caller asks for the CPU, where every GEMM runs its plain version. The
 reference's ``dist`` (a ``layers.Distribution``) is left out: no validator
-reads it, and the model placement it would carry waits for the sharded
-model (ROADMAP.md queue 1, *Multi-device*, the sharded model). The ``mesh``
+reads it, and the parameter placement it would carry waits for ROADMAP.md
+queue 1, *Multi-device*, placement and entry points. The ``mesh``
 workload runs on the ranks of a ``torch.distributed`` world instead.
 """
 

@@ -263,6 +263,38 @@ def mesh_step_card(dev, shapes: list) -> dict:
     return out
 
 
+def sharded_collectives_card(dev) -> dict:
+    """Card-only: ``all_gather``, ``psum_scatter``, ``all_to_all`` (tiled
+    and not) and ``axis_index`` over each axis of the 1x4 and 2x2 meshes on
+    CUDA tensors against the same ops on host tensors, and the ops gloo
+    stages through the host."""
+    from repro_torch.launch.mesh import staged_ops
+    from repro_torch.parallel import axes as A
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.randn(4, 8, 12, generator=torch.Generator().manual_seed(r))
+    out = {"equal": {}}
+    for shape in ((1, n), (2, n // 2)):
+        mesh = make_mesh(shape)
+        with use_mesh(mesh):
+            for axis in mesh.axis_names:
+                if mesh.axis_size(axis) == 1:
+                    continue
+                res = {}
+                for t in (x.to(dev), x):
+                    res[t.device.type] = {
+                        "all_gather": A.all_gather(t, axis, axis=1, tiled=True),
+                        "all_gather_stacked": A.all_gather(t, axis, axis=0),
+                        "psum_scatter": A.psum_scatter(t, axis, scatter_dimension=0,
+                                                       tiled=True),
+                        "all_to_all": A.all_to_all(t, axis, 0, 2, tiled=True),
+                        "axis_index": torch.tensor(A.axis_index(axis))}
+                for op, y in res["cuda"].items():
+                    out["equal"][f"{mesh.describe()} {axis} {op}"] = (
+                        y.is_cuda or op == "axis_index") and torch.equal(y.cpu(), res["cpu"][op])
+    out["staged"] = staged_ops()
+    return out
+
+
 def rank_and_world(dev):
     return dist.get_rank(), dist.get_world_size(), str(dev)
 

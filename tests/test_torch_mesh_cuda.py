@@ -3,7 +3,9 @@
 ``fdp_psum`` of its K-shard torch.equal the dense kernel's unsharded
 output, and reduced paper-mlp's fixed-point mesh step under the 91-bit
 kernel policy equal on 1x4 and 2x2, on every rank, with the dense kernel's
-launches equal to the FDP dispatches.
+launches equal to the FDP dispatches; and the sharded model's collectives
+(``all_gather``, ``psum_scatter``, ``all_to_all``, ``axis_index``) on CUDA
+tensors equal to the same on host tensors, whatever gloo stages.
 
 This file imports neither JAX nor the JAX package:
 
@@ -39,3 +41,15 @@ def test_four_ranks_share_the_card():
         for shape in ("1x4", "2x2"):
             for k, v in r["stepped"][shape].items():
                 np.testing.assert_array_equal(v, ref[k], err_msg=f"{shape} {k}")
+
+
+@pytest.mark.cuda
+def test_sharded_collectives_on_the_card_equal_host():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ranks share cuda:0")
+    res = TM.spawn(W.sharded_collectives_card, 4, device="cuda:0", timeout=300,
+                   collective_timeout=120)
+    for r in res:
+        assert r["equal"] and all(r["equal"].values()), r["equal"]
+        assert set(r["staged"]) == {"all_gather", "reduce_scatter", "all_to_all"}
+        assert r["staged"] == res[0]["staged"]

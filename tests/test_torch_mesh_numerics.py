@@ -228,8 +228,8 @@ def test_distribution_for_carries_policy():
         make_mesh("3x9")
     x = torch.ones(2)
     assert LOCAL.constrain(x, "data") is x
-    with pytest.raises(NotImplementedError, match=r"queue 1, \*Multi-device\*"):
-        dist.constrain(x, "data")
+    # with a mesh too: the rank's block already has the named placement
+    assert dist.constrain(x, "data") is x
 
 
 def test_make_test_mesh_and_dp_axes_of():
