@@ -267,7 +267,28 @@ Phases (any failure exits non-zero before the final line):
      K-split, which sums plain limbs with ``fdp_psum``); each rank's
      seconds by part, peak memory, every collective by op, size and dtype,
      and the serves' tok/s;
- 23. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 23. the Mamba-2 families at published widths (``ssm_phase``): (a)
+     mamba2-1.3b cut from 48 to 24 layers, (b) zamba2-2.7b cut to 12
+     layers (two groups, the shared attention + MLP block after each;
+     head_dim 80),
+     each drawn from seed 0 on the host: the dense kernel torch.equal its
+     plain version at each decode shape of a serve (the six SSM sites, the
+     shared block's, the LM head), timed beside its bound; a serve of phase
+     3's request shape under FDP91_KERNEL with the launch count set to 0
+     just before and read just after, equal to the FDP dispatches and to
+     the steps times the sites a step; the same serve again under
+     torch.profiler (tokens and last logits bit-equal to the first; device
+     busy, idle share, the dense kernel's seconds); a serve under MXU_FP32
+     (the yardstick) and under the checked-in zoo plan
+     (``examples/plans/mamba2_1p3b.json``, ``zamba2_2p7b.json``, unchanged:
+     every site native, no FDP launch); ``forward`` of 4 x 72 tokens (the chunked SSD: two chunks of
+     64, the second padded) within 1e-3 x max |logit| of ``prefill``'s
+     per-token logits (the step recurrence);
+     ``pallas`` == ``simulate`` logits at 2 layers (mamba2) and 6 (zamba2,
+     one group; draws of that depth) on 1 x 8 tokens; the weights freed
+     after each model (no host copy is kept); the
+     seconds and the peak memory by part;
+ 24. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -359,6 +380,20 @@ MESH_GEMM, MESH_PSUM = (64, 1024, 3072), 1 << 20
 # and EP's capacity factor (tp: a destination can take every row a rank
 # sends, so none is dropped)
 SHARD_SEQ, SHARD_TOL, SHARD_MOE_TOL, SHARD_EP_CF = 64, 1e-4, (2e-4, 2e-5), 4.0
+# Phase 23, the Mamba-2 families at published widths: (architecture, depth
+# served, depth of the pallas == simulate check, its zoo plan), each cut for
+# the script's time: mamba2-1.3b from 48 to 24 layers (a run of the whole
+# script with all 48 took 1111.21 s of phases on a slow host), zamba2-2.7b
+# from 54 to 12 (two groups of six SSM layers, each followed by the shared
+# block), whose pallas == simulate check runs one group. That check runs
+# SSM_EQ_SHAPE tokens (the plain version's cost grows with the rows); the
+# chunked forward of SSM_FWD_SHAPE tokens (two chunks of 64, the second
+# padded) is held to prefill's step recurrence within SSM_FWD_TOL x max
+# |logit| (the two SSD forms sum in other orders in f32, through every
+# layer)
+SSM_ARCHS = (("mamba2-1.3b", 24, 2, "mamba2_1p3b.json"),
+             ("zamba2-2.7b", 12, 6, "zamba2_2p7b.json"))
+SSM_EQ_SHAPE, SSM_FWD_SHAPE, SSM_FWD_TOL = (1, 8), (4, 72), 1e-3
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -1897,8 +1932,10 @@ def shard_refs_qwen(torch, dev, cfg, params) -> dict:
 
 
 def recording_serve(torch, serve_mod):
-    """A context manager under which ``launch.serve.serve``'s decode steps
-    append their logits (on the host) to the list it yields."""
+    """A context manager under which ``serve_mod.decode_step``'s calls
+    append their logits (on the host) to the list it yields: the decode
+    steps of ``launch.serve.serve`` (``serve_mod`` that module), or every
+    step of ``prefill`` (``models.transformer``)."""
     steps, step = [], serve_mod.decode_step
 
     def recorded(*args, **kw):
@@ -2358,6 +2395,261 @@ def shard_report(ranks: list, wall: float) -> dict:
         log(f"  {op} of {int(nbytes)} B {dtype}: {calls} calls over the ranks, {sec:.3f} s")
     return {"launches": dict(launches), "wall_s": wall, "staged": r0["staged"],
             "ranks": ranks}
+
+
+def ssm_sites(cfg) -> dict:
+    """The dense kernel's (B, M, K, N) at each site of a decode step of
+    ``cfg`` (an SSM or hybrid model) serving BATCH prompts: the six SSM
+    projections, the hybrid's shared attention and MLP (the attention
+    GEMMs grouped by KV head against a cache of PROMPT + GEN positions),
+    the LM head."""
+    d, di, gn = cfg.d_model, cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    sites = {"ssm_x": (BATCH, 1, d, di), "ssm_z": (BATCH, 1, d, di),
+             "ssm_B": (BATCH, 1, d, gn), "ssm_C": (BATCH, 1, d, gn),
+             "ssm_dt": (BATCH, 1, d, cfg.ssm_heads), "ssm_out": (BATCH, 1, di, d),
+             "lm_head": (BATCH, 1, d, cfg.padded_vocab)}
+    if cfg.family == "hybrid":
+        hq, hkv, hd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.head_dim
+        G, smax, bkh = cfg.n_heads // cfg.n_kv_heads, PROMPT + GEN, BATCH * cfg.n_kv_heads
+        sites.update({"attn_q": (BATCH, 1, d, hq), "attn_k": (BATCH, 1, d, hkv),
+                      "attn_v": (BATCH, 1, d, hkv), "attn_qk": (bkh, G, hd, smax),
+                      "attn_av": (bkh, G, smax, hd), "attn_o": (BATCH, 1, hq, d),
+                      "mlp_in": (BATCH, 1, d, cfg.d_ff), "mlp_gate": (BATCH, 1, d, cfg.d_ff),
+                      "mlp_out": (BATCH, 1, cfg.d_ff, d)})
+    return sites
+
+
+def ssm_kernel_shapes(torch, dev, cfg, gen) -> dict:
+    """The dense kernel at each of ``ssm_sites(cfg)`` on random fp32
+    operands (the weight broadcast over the batch, as ``dense`` passes it;
+    the attention GEMMs batched): torch.equal its plain version (that call
+    timed by CUDA events: the plain version of a batched attention call
+    loops over its 128 batch elements, ~1 s), the kernel's CUDA-event ms
+    (warm, back to back) and the bound."""
+    from repro_torch.core.accumulator import AccumulatorSpec
+    from repro_torch.core.formats import FP32
+    from repro_torch.kernels import fdp_gemm as K
+    P91 = AccumulatorSpec.paper_91bit()
+    out = {}
+    for site, (B, M, Kd, N) in ssm_sites(cfg).items():
+        bcast = site not in ("attn_qk", "attn_av")
+        a = FP32.quantize(torch.randn(B, M, Kd, generator=gen, device=dev))
+        b = FP32.quantize(torch.randn(1 if bcast else B, Kd, N, generator=gen, device=dev)
+                          * Kd ** -0.5)
+        b = b.expand(B, Kd, N)
+        got = K.fdp_gemm(a, b, spec=P91, fmt=FP32)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = K.fdp_gemm_plain(a, b, spec=P91, fmt=FP32)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if got.shape != (B, M, N) or not torch.equal(got, want):
+            fail(f"{cfg.name} {site} {(B, M, Kd, N)}: the dense kernel != its plain version "
+                 f"(max |diff| {(got - want).abs().max().item()})")
+        ms = cuda_ms(torch, lambda: K.fdp_gemm(a, b, spec=P91, fmt=FP32),
+                     reps=20 if site == "lm_head" else 50)
+        b_elems = (1 if bcast else B) * Kd * N
+        ops_n = K.int32_ops(B * M * Kd, b_elems, B * M * Kd * N)
+        out[site] = {"shape": [B, M, Kd, N], "ms": ms, "plain_ms": plain_ms,
+                     **bound(4 * (B * M * Kd + b_elems + B * M * N), ops_n)}
+        log(f"  {cfg.name} {site:8s} {(B, M, Kd, N)}: kernel torch.equal plain; "
+            f"{ms:.4f} ms, bound {out[site]['bound_ms']:.4f} ms ({out[site]['bound_by']}) = "
+            f"{100 * out[site]['bound_ms'] / ms:.1f}% of bound; plain {plain_ms:.2f} ms")
+        del a, b, got, want
+    return out
+
+
+def ssm_model_part(torch, dev, cfg, eq_layers: int, zoo_file: str) -> dict:
+    """Phase 23 on one model at published widths: the dense kernel at its
+    decode shapes; a serve of BATCH x PROMPT prompts, GEN generated, under
+    FDP91_KERNEL with the launch count set to 0 just before and read just
+    after (== FDP dispatches == steps x sites a step), then again under
+    torch.profiler (tokens and last logits bit-equal to the first run), then
+    under MXU_FP32 and the zoo plan (no FDP launch); the chunked
+    ``forward`` of SSM_FWD_SHAPE tokens against ``prefill``'s per-token
+    logits (the step recurrence);
+    ``pallas`` == ``simulate`` logits at ``eq_layers`` layers (a draw of
+    that depth from the same seed). Frees the weights. Returns its numbers,
+    and seconds and peak memory by part."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import forward, init, init_cache, prefill
+    from repro_torch.models import transformer as T
+    secs, peak_gb, clock = {}, {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
+        clock[0] = now
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init(cfg, seed=0, device=dev)          # no host copy: nothing draws it again
+    torch.cuda.synchronize()
+    lap("draw")
+    log(f"init {cfg.name} at {cfg.n_layers} layers, full width: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} G f32 parameters drawn in "
+        f"{secs['draw']:.2f} s")
+    log(f"{cfg.name}: the dense kernel at its decode shapes")
+    shapes = ssm_kernel_shapes(torch, dev, cfg, torch.Generator(device=dev).manual_seed(23))
+    lap("kernel_shapes")
+
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    zoo = D.policy_from_plan(os.path.join(ROOT, "examples", "plans", zoo_file))
+
+    def one_serve(policy):
+        """(tokens, the last step's logits on the host), seconds."""
+        with D.use_policy(policy), recording_serve(torch, serve_mod) as steps:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            toks = serve_mod.serve(cfg, params, prompts, GEN, device=dev)
+            torch.cuda.synchronize()
+            return (toks, steps[-1]), time.perf_counter() - t
+
+    hybrid = cfg.family == "hybrid"
+    # six SSM sites a layer, the LM head, and nine sites a shared block
+    per_step = 6 * cfg.n_layers + 1 + (9 * (cfg.n_layers // cfg.attn_every) if hybrid else 0)
+    D.reset_sites_seen()
+    K.fdp_gemm.launches = 0
+    (toks, last), fdp_s = one_serve(FDP91_KERNEL)
+    launches = K.fdp_gemm.launches
+    calls = D.site_calls()
+    n_fdp = sum(calls.values())
+    if toks.shape != (BATCH, GEN) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"{cfg.name}: served tokens malformed: shape {tuple(toks.shape)}")
+    if set(calls) != set(ssm_sites(cfg)):
+        fail(f"{cfg.name}: dispatched sites {sorted(calls)} != {sorted(ssm_sites(cfg))}")
+    if not launches == n_fdp == (PROMPT + GEN) * per_step:
+        fail(f"{cfg.name}: dense launches {launches}, FDP dispatches {n_fdp}, expected "
+             f"{PROMPT + GEN} steps x {per_step}")
+    held = {}
+
+    def traced_serve():
+        held["out"], wall = one_serve(FDP91_KERNEL)
+        return held["out"], wall
+
+    trace = trace_serve(torch, traced_serve)
+    again, last_again = held["out"]
+    if not torch.equal(again, toks) or not torch.equal(last_again, last):
+        fail(f"{cfg.name}: a second FDP91_KERNEL serve differs (tokens equal "
+             f"{torch.equal(again, toks)}, last logits equal {torch.equal(last_again, last)})")
+    (toks32, last32), fp32_s = one_serve(D.MXU_FP32)
+    D.reset_sites_seen()
+    before = (K.fdp_gemm.launches, K.fdp_ragged_gemm.launches)
+    (toks_zoo, _), zoo_s = one_serve(zoo)
+    zoo_calls = D.site_calls()
+    if (K.fdp_gemm.launches, K.fdp_ragged_gemm.launches) != before \
+            or sum(zoo_calls.values()) != n_fdp:
+        fail(f"{cfg.name}: the zoo plan launched FDP kernels or dispatched "
+             f"{sum(zoo_calls.values())} GEMMs, not {n_fdp}")
+    lap("serves")
+    tok_s = BATCH * GEN / fdp_s
+    V = cfg.vocab_size
+    log(f"serve {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"vocab {V}) under {FDP91_KERNEL.name}: batch {BATCH} prompt {PROMPT} gen {GEN}; "
+        f"dense launches {launches} == FDP dispatches {n_fdp} == {PROMPT + GEN} steps x "
+        f"{per_step}; {fdp_s:.3f} s = {tok_s:.2f} tok/s (each step's logits copied to the "
+        f"host, as in every serve of this phase); a second, traced run repeats the tokens "
+        f"and the last logits bit for bit")
+    log(f"  {D.MXU_FP32.name}: {fp32_s:.3f} s = {BATCH * GEN / fp32_s:.2f} tok/s, tokens agree "
+        f"{100 * float((toks32 == toks).float().mean()):.1f}%, last logits max |diff| "
+        f"{(last32 - last)[..., :V].abs().max().item():.3e}; zoo plan {zoo.name!r} "
+        f"(examples/plans/{zoo_file}, unchanged, every site native): {zoo_s:.3f} s = "
+        f"{BATCH * GEN / zoo_s:.2f} tok/s, 0 FDP launches, tokens agree "
+        f"{100 * float((toks_zoo == toks).float().mean()):.1f}%")
+    if trace is None:
+        log("  traced serve: torch.profiler recorded no device events; device busy and "
+            "idle share not measured")
+    else:
+        log(f"  traced {FDP91_KERNEL.name} serve (torch.profiler): wall {trace['wall_s']:.3f} s, "
+            f"device busy {trace['device_busy_s']:.3f} s, idle share "
+            f"{100 * trace['idle_share']:.1f}%, {trace['device_events']} device events; "
+            f"dense kernel {trace['kernels']['fdp_gemm']['count']} in "
+            f"{trace['kernels']['fdp_gemm']['s']:.3f} s, outside it "
+            f"{trace['device_busy_s'] - trace['fdp_kernel_s']:.3f} s busy; top: "
+            + "; ".join(f"{n} {x:.3f} s" for n, x in trace["top"]))
+
+    # the chunked SSD (forward) against the step recurrence (prefill)
+    tokens = torch.randint(0, cfg.vocab_size, SSM_FWD_SHAPE,
+                           generator=torch.Generator().manual_seed(23)).to(dev)
+    with D.use_policy(FDP91_KERNEL), torch.no_grad():
+        full = forward(params, cfg, {"tokens": tokens})[..., :V]
+        cache = init_cache(cfg, SSM_FWD_SHAPE[0], SSM_FWD_SHAPE[1], dtype=torch.float32,
+                           device=dev)
+        with recording_serve(torch, T) as steps:
+            last_pf, _ = prefill(params, cfg, {"tokens": tokens}, cache)
+    stepped = torch.stack([s[:, 0, :V] for s in steps], 1)
+    if stepped.shape != full.shape or not torch.equal(stepped[:, -1], last_pf[:, :V].cpu()):
+        fail(f"{cfg.name}: prefill's recorded steps {tuple(stepped.shape)} do not end in its "
+             f"last logits")
+    if not bool(torch.isfinite(full).all()):
+        fail(f"{cfg.name}: the chunked forward's logits are not finite")
+    diff = (full.cpu() - stepped).abs()
+    scale = stepped.abs().max().item()
+    top1 = float((full.cpu().argmax(-1) == stepped.argmax(-1)).float().mean())
+    fwd = {"max_abs_diff": diff.max().item(), "last_max_abs_diff": diff[:, -1].max().item(),
+           "max_abs_logit": scale, "tol": SSM_FWD_TOL, "top1_agree": top1}
+    log(f"  forward {SSM_FWD_SHAPE} (chunked SSD, chunks of 64) against prefill's per-token "
+        f"logits (the step recurrence) under {FDP91_KERNEL.name}: max |diff| "
+        f"{fwd['max_abs_diff']:.3e} ({fwd['max_abs_diff'] / scale:.2e} x max |logit| "
+        f"{scale:.3f}; gate {SSM_FWD_TOL:g}), at the last position {fwd['last_max_abs_diff']:.3e}; "
+        f"top-1 agree {100 * top1:.2f}%")
+    if fwd["max_abs_diff"] > SSM_FWD_TOL * scale:
+        fail(f"{cfg.name}: the chunked forward is {fwd['max_abs_diff']:.3e} from prefill, "
+             f"past {SSM_FWD_TOL:g} x {scale:.3f}")
+    del full, cache, stepped, diff, steps
+    lap("forward_vs_prefill")
+    del params
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path at model level
+    ecfg = dataclasses.replace(cfg, n_layers=eq_layers)
+    eparams = init(ecfg, seed=0, device=dev)
+    batch = {"tokens": torch.randint(0, V, SSM_EQ_SHAPE,
+                                     generator=torch.Generator().manual_seed(2)).to(dev)}
+    simulate = D.NumericsPolicy(dataclasses.replace(FDP91_KERNEL.default, mode="simulate"))
+    with torch.no_grad():
+        with D.use_policy(FDP91_KERNEL):
+            lk = forward(eparams, ecfg, batch)
+        with D.use_policy(simulate):
+            ls = forward(eparams, ecfg, batch)
+    if lk.shape != SSM_EQ_SHAPE + (ecfg.padded_vocab,) or not torch.equal(lk, ls):
+        fail(f"{cfg.name} at {eq_layers} layers: pallas != simulate logits "
+             f"(max |diff| {(lk - ls).abs().max().item()})")
+    log(f"  {eq_layers}-layer full-width {cfg.name} forward {SSM_EQ_SHAPE}: pallas logits "
+        f"torch.equal simulate logits")
+    del eparams, lk, ls
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("pallas_vs_simulate")
+    return {"layers": cfg.n_layers, "launches": launches, "dispatches_a_step": per_step,
+            "calls": calls, "shapes": shapes, "fdp_serve_s": fdp_s,
+            "tok_s": tok_s, "fp32_tok_s": BATCH * GEN / fp32_s,
+            "zoo_tok_s": BATCH * GEN / zoo_s, "tokens": toks.tolist(),
+            "trace": trace and {k: v for k, v in trace.items() if k != "top"},
+            "forward_vs_prefill": fwd, "seconds": secs, "peak_gb": peak_gb}
+
+
+def ssm_phase(torch, dev) -> dict:
+    """Phase 23: ``ssm_model_part`` for each of SSM_ARCHS; logs the
+    seconds and the peak memory by part."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, depth, eq_layers, zoo_file in SSM_ARCHS:
+        cfg = get_config(arch)
+        if depth != cfg.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        out[arch] = ssm_model_part(torch, dev, cfg, eq_layers, zoo_file)
+    log("phase 23 seconds (peak GB allocated) by part: " + "; ".join(
+        f"{arch} " + ", ".join(f"{k} {v:.2f} ({r['peak_gb'][k]:.2f})"
+                               for k, v in r["seconds"].items())
+        for arch, r in out.items()))
+    return out
 
 
 def main() -> None:
@@ -4130,12 +4422,16 @@ def main() -> None:
     # the main process, during phases 18 and 21) count in it, not there
     p22_s = mesh["p22_wall_s"] + ref18_s + ref21_s
 
+    # -- 23. the Mamba-2 families at published widths --------------------------
+    phase("23")
+    ssm = ssm_phase(torch, dev)
+
     phase("")
     PHASE_S["18"] -= ref18_s
     PHASE_S["21"] -= mesh["p22_wall_s"] + ref21_s
     PHASE_S["22"] = p22_s
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-22 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-23 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -4149,7 +4445,8 @@ def main() -> None:
                      + sum(engine_launches["fdp_gemm"].values()) + routed_launches
                      + monitored_launches
                      + autotune_launches_total + sched["dense_launches_on_persisted"]
-                     + mesh["launches"] + mesh["p22"]["launches"]["fdp_gemm"]),
+                     + mesh["launches"] + mesh["p22"]["launches"]["fdp_gemm"]
+                     + sum(r["launches"] for r in ssm.values())),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -4169,7 +4466,9 @@ def main() -> None:
                              "qwen3-0.6b mesh step, 1x4, summed over 4 ranks on the "
                              "card (phase 21)": mesh["launches"],
                              "sharded forward and serves, summed over 4 ranks on the card "
-                             "(phase 22)": mesh["p22"]["launches"]["fdp_gemm"]},
+                             "(phase 22)": mesh["p22"]["launches"]["fdp_gemm"],
+                             **{f"{arch} serve, {r['layers']} layers (phase 23)": r["launches"]
+                                for arch, r in ssm.items()}},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -4189,6 +4488,7 @@ def main() -> None:
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
         "continuous": continuous, "routed_serving": routed, "schedules": sched,
         "mesh": {k: v for k, v in mesh.items() if k != "launches"},
+        "ssm_families": ssm,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

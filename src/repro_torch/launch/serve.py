@@ -1,21 +1,29 @@
 """Batched serving entry point (counterpart of ``repro.launch.serve``):
-prefill + greedy incremental decode with an f32 KV cache.
+prefill + greedy incremental decode with an f32 KV cache (an f32 conv and
+SSM state cache for the Mamba-2 layers of ``ssm`` and ``hybrid`` models).
 
 On the card, under the FDP kernel policy:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --policy fdp91_kernel
-On the CPU at test size (any dense or MoE architecture, e.g. dbrx-132b):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --policy fdp91_kernel
+On the CPU at test size (any dense, MoE, SSM or hybrid architecture, e.g.
+dbrx-132b, mamba2-1.3b or zamba2-2.7b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --reduced --device cpu
 
 Under a precision plan (per-site numerics loaded from JSON):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --precision-plan examples/plans/qwen3_0p6b.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --precision-plan examples/plans/zamba2_2p7b.json
 
 ``--policy`` picks one of the named uniform policies instead; passing both
 is an error, so that it is never unclear which policy served.
 
-``--engine continuous`` routes the same requests through the fixed-slot
+``--engine continuous`` (KV-cache families only, as in the reference: the
+SSM and hybrid families serve on the simple engine) routes the same
+requests through the fixed-slot
 ``launch.batching.ContinuousBatcher``: one request a prompt row, a cache of
 ``prompt_len + 2 * gen + 2`` positions, the decode step captured in one CUDA
 graph under the policy before the first request arrives (on the CPU: eager

@@ -8,7 +8,7 @@ from typing import Optional
 
 # Families the port runs; ROADMAP queue 1, *The other families*, brings the
 # rest.
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: "ModelConfig") -> None:

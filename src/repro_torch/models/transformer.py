@@ -1,5 +1,6 @@
-"""Model assembly (counterpart of ``repro.models.transformer``), dense and
-MoE families:
+"""Model assembly (counterpart of ``repro.models.transformer``), the dense,
+MoE, SSM (Mamba-2) and hybrid (Zamba2: SSM layers with one weight-shared
+attention + MLP block after every ``attn_every`` of them) families:
 
     params = init(cfg, seed, device)               # a Transformer module
     logits = forward(params, cfg, batch)           # train / prefill logits
@@ -14,12 +15,17 @@ block (``block_of``: the batch split over the dp axes, the sequence over
 that block of the logits; ``gather_block`` puts the blocks back together.
 ``prefill`` takes the global batch too and fills a cache of the rank's rows
 (all rows under ``joint_tp``); ``decode_step`` takes and returns those rows.
+The SSM and hybrid families raise on a mesh (``ssm.ssm_block``).
 
 Parameters map one-to-one onto the reference's tree: its ``layers.*``
-leaves carry a leading layer axis, here ``layers[i].*`` is one module per
-layer (``models.convert`` unstacks and restacks). Layers run as a Python
-loop in place of the reference's ``scan``; ``remat`` checkpoints each block
-(``dispatch.checkpoint``, whose recompute re-enters the forward's policy).
+leaves carry a leading layer axis (two for ``hybrid``: group, then position
+in the group), here ``layers[i].*`` is one module per layer, layer ``i``
+being group ``i // attn_every``, position ``i % attn_every``, and
+``shared.*`` the hybrid's one shared block (``models.convert`` unstacks and
+restacks). Layers run as a Python loop in place of the reference's
+``scan``; ``remat`` checkpoints each block (``dispatch.checkpoint``, whose
+recompute re-enters the forward's policy), where the reference remats a
+hybrid's whole group: the recompute gives the same bits either way.
 
 Every GEMM site here is a forward site name; differentiating ``forward``
 dispatches the matching ``<site>@bwd.dA``/``<site>@bwd.dB`` sites through
@@ -37,17 +43,24 @@ from repro_torch.device import resolve_device
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 from .config import ModelConfig, check_family
+
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 class Block(nn.Module):
     """One decoder block: attn_norm, attn, mlp_norm, then moe (when the
-    config has experts) or mlp."""
+    config has experts) or mlp; for the SSM families ssm_norm and ssm."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None,
                  expert_take=None):
         super().__init__()
         ones = lambda: L._param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        if cfg.family in SSM_FAMILIES:
+            self.ssm_norm = ones()
+            self.ssm = SSM.SSM(cfg, gen, dtype, device)
+            return
         self.attn_norm = ones()
         self.attn = L.init_attention(gen, cfg, dtype, device)
         self.mlp_norm = ones()
@@ -58,11 +71,33 @@ class Block(nn.Module):
             self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
+class SharedBlock(nn.Module):
+    """The hybrid's weight-tied attention + MLP block: attn_norm, attn,
+    mlp_norm, mlp."""
+
+    def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None):
+        super().__init__()
+        ones = lambda: L._param(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.attn_norm = ones()
+        self.attn = L.init_attention(gen, cfg, dtype, device)
+        self.mlp_norm = ones()
+        self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    """The hybrid's groups of ``attn_every`` SSM layers, each followed by the
+    shared block."""
+    if cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into groups "
+                         f"of attn_every={cfg.attn_every}")
+    return cfg.n_layers // cfg.attn_every
+
+
 class Transformer(nn.Module):
-    """embed (V, d), final_norm (d,), lm_head (d, V) and one Block per layer.
-    With ``gen=None`` the weights are left uninitialized (to be copied in).
-    ``expert_take`` cuts each expert tensor to a rank's slice
-    (``launch.sharding.expert_take``)."""
+    """embed (V, d), final_norm (d,), lm_head (d, V), one Block per layer and,
+    for ``hybrid``, the shared block (drawn last). With ``gen=None`` the
+    weights are left uninitialized (to be copied in). ``expert_take`` cuts
+    each expert tensor to a rank's slice (``launch.sharding.expert_take``)."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None,
                  expert_take=None):
@@ -72,8 +107,12 @@ class Transformer(nn.Module):
         self.embed = L._normal((V, d), d ** -0.5, gen, dtype, device)
         self.final_norm = L._param(torch.ones(d, dtype=dtype, device=device))
         self.lm_head = L._normal((d, V), d ** -0.5, gen, dtype, device)
+        if cfg.family == "hybrid":
+            n_groups(cfg)                   # raises unless the layers split into groups
         self.layers = nn.ModuleList(Block(cfg, gen, dtype, device, expert_take)
                                     for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = SharedBlock(cfg, gen, dtype, device)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None, dist: L.Distribution = L.LOCAL,
@@ -147,6 +186,10 @@ def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, position
                    prefix_len=0, kv_cache=None, moe_impl: str = "tp",
                    seq_sharded: bool = False):
     """Returns (x, new_kv_cache)."""
+    if cfg.family in SSM_FAMILIES:
+        h, new_cache = SSM.ssm_block(L.rms_norm(x, p.ssm_norm, cfg.norm_eps), p.ssm, cfg,
+                                     dist, cache=kv_cache)
+        return x + h, new_cache
     h, new_cache = L.attention_block(
         L.rms_norm(x, p.attn_norm, cfg.norm_eps), p.attn, cfg, dist, causal=True,
         prefix_len=prefix_len, positions=positions, kv_cache=kv_cache,
@@ -158,6 +201,18 @@ def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, position
     elif cfg.d_ff:
         x = x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg, dist,
                             seq_sharded=seq_sharded)
+    return x, new_cache
+
+
+def _shared_block(x, p: SharedBlock, cfg, dist: L.Distribution = L.LOCAL, *, positions,
+                  kv_cache=None):
+    """The hybrid's weight-shared full-attention + MLP block. Returns (x,
+    new_kv_cache)."""
+    h, new_cache = L.attention_block(
+        L.rms_norm(x, p.attn_norm, cfg.norm_eps), p.attn, cfg, dist, causal=True,
+        positions=positions, kv_cache=kv_cache)
+    x = x + h
+    x = x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg, dist)
     return x, new_cache
 
 
@@ -204,9 +259,15 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
         return _decoder_block(h, blk, cfg, dist, positions=positions, moe_impl=moe_impl,
                               seq_sharded=sp)[0]
 
+    def shared(h, blk):
+        return _shared_block(h, blk, cfg, dist, positions=positions)[0]
+
     use_remat = remat != "none" and torch.is_grad_enabled()
-    for blk in params.layers:
-        x = dispatch.checkpoint(body, x, blk) if use_remat else body(x, blk)
+    run = lambda fn, h, blk: dispatch.checkpoint(fn, h, blk) if use_remat else fn(h, blk)
+    for i, blk in enumerate(params.layers):
+        x = run(body, x, blk)
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            x = run(shared, x, params.shared)
     if return_hidden:
         return L.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, x)
@@ -217,15 +278,38 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Float KV cache for incremental decoding: {"len": 0, "layers": {"k",
-    "v": (n_layers, B, n_kv_heads, max_len, head_dim)}}. (The int8 cache
-    comes with a later slice.)"""
+    """Cache for incremental decoding, the reference's tree: {"len": 0,
+    "layers": ...}. Attention layers (dense, MoE) hold float K/V, {"k", "v":
+    (n_layers, B, n_kv_heads, max_len, head_dim)} in ``dtype``; SSM layers
+    {"conv_x", "conv_B", "conv_C": (n_layers, B, w-1, ·)} in ``dtype`` and
+    {"state": (n_layers, B, g, e, p, n)} in f32. A hybrid's ``layers``
+    leaves lead with (groups, attn_every) in place of n_layers, and
+    ``shared`` holds each group's K/V of the shared block, (groups, B,
+    n_kv_heads, max_len, head_dim). (The int8 cache comes with a later
+    slice.)"""
     check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"len": 0,
-            "layers": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=dtype, device=dev)}}
+    zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache(n):
+        shape = (n, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        return {"k": zeros(*shape), "v": zeros(*shape)}
+
+    def ssm_cache(*lead):
+        g, e = cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups
+        w, gn = cfg.ssm_conv, cfg.ssm_groups * cfg.ssm_state
+        return {"conv_x": zeros(*lead, batch, w - 1, cfg.d_inner),
+                "conv_B": zeros(*lead, batch, w - 1, gn),
+                "conv_C": zeros(*lead, batch, w - 1, gn),
+                "state": zeros(*lead, batch, g, e, cfg.ssm_head_dim, cfg.ssm_state,
+                               dt=torch.float32)}
+
+    if cfg.family == "ssm":
+        return {"len": 0, "layers": ssm_cache(cfg.n_layers)}
+    if cfg.family == "hybrid":
+        ng = n_groups(cfg)
+        return {"len": 0, "layers": ssm_cache(ng, cfg.attn_every), "shared": attn_cache(ng)}
+    return {"len": 0, "layers": attn_cache(cfg.n_layers)}
 
 
 @torch.inference_mode()
@@ -234,27 +318,41 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
                 moe_impl: str = "tp"):
     """One incremental decode step. tokens: (B, 1) int, the cache's rows (on
     a mesh the rank's, ``block_of``).
-    Returns (logits (B, 1, V), new_cache); the cache tensors are updated in
-    place and shared with the returned cache.
+    Returns (logits (B, 1, V), new_cache); the cache tensors (K/V, conv and
+    SSM states) are updated in place and shared with the returned cache.
 
     ``cache["len"]``, the write cursor, is an int or a 0-d integer tensor on
     the device; with a tensor the step reads no host value, so it can be
     captured in a CUDA graph (``launch.batching``). ``cache["start"]``
     (B,), when present, is the continuous batcher's per-slot lower bound
-    of attention."""
-    kv_layers = cache["layers"]
-    if tokens.shape[0] != kv_layers["k"].shape[1]:
-        raise ValueError(f"{tokens.shape[0]} rows of tokens, the cache holds "
-                         f"{kv_layers['k'].shape[1]}")
+    of attention (dense and MoE)."""
+    layers = cache["layers"]
+    # the batch axis: K/V (n, B, ...); an SSM state (..., B, g, e, p, n)
+    rows = layers["state"].shape[-5] if cfg.family in SSM_FAMILIES else layers["k"].shape[1]
+    if tokens.shape[0] != rows:
+        raise ValueError(f"{tokens.shape[0]} rows of tokens, the cache holds {rows}")
     x = _embed(params, cfg, tokens)
     ln = cache["len"]
     pos = ln + torch.zeros((x.shape[0], 1), dtype=torch.int64, device=x.device)
     start = cache.get("start")
+    new_cache = {"len": ln + 1, "layers": layers}
+    if cfg.family in SSM_FAMILIES:
+        hybrid = cfg.family == "hybrid"
+        for i, blk in enumerate(params.layers):
+            at = divmod(i, cfg.attn_every) if hybrid else i      # (group, position)
+            x, _ = _decoder_block(x, blk, cfg, dist, positions=pos,
+                                  kv_cache={k: layers[k][at] for k in SSM.CACHE_KEYS})
+            if hybrid and at[1] == cfg.attn_every - 1:
+                kv = {"k": cache["shared"]["k"][at[0]], "v": cache["shared"]["v"][at[0]],
+                      "len": ln}
+                x, _ = _shared_block(x, params.shared, cfg, dist, positions=pos, kv_cache=kv)
+        if hybrid:
+            new_cache["shared"] = cache["shared"]
+        return _logits(params, cfg, x), new_cache
     for i, blk in enumerate(params.layers):
-        kv = {"k": kv_layers["k"][i], "v": kv_layers["v"][i], "len": ln, "start": start}
+        kv = {"k": layers["k"][i], "v": layers["v"][i], "len": ln, "start": start}
         x, _ = _decoder_block(x, blk, cfg, dist, positions=pos, kv_cache=kv,
                               moe_impl=moe_impl)
-    new_cache = {"len": ln + 1, "layers": kv_layers}
     if start is not None:
         new_cache["start"] = start
     return _logits(params, cfg, x), new_cache

@@ -312,3 +312,23 @@ def hang_on_rank_one(dev):
     else:
         import time
         time.sleep(120)
+
+
+def ssm_on_a_mesh(dev) -> dict:
+    """``forward`` and ``serve`` of reduced mamba2-1.3b on a 1 x world mesh:
+    the message each raises (None when it does not)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import forward, init
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = init(cfg, seed=0, device=dev)
+    d = distribution_for(make_mesh((1, world_size())))
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    out = {}
+    for name, call in (("forward", lambda: forward(params, cfg, {"tokens": toks}, d)),
+                       ("serve", lambda: serve(cfg, params, toks, 2, device=dev, dist=d))):
+        try:
+            call()
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out

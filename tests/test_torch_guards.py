@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-            "repro_torch.models, repro_torch.models.moe, repro_torch.launch.serve, "
+            "repro_torch.models, repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.launch.serve, "
             "repro_torch.configs, repro_torch.core.qformat, repro_torch.train, "
             "repro_torch.train.optimizer, repro_torch.train.loop, "
             "repro_torch.checkpoint.store, repro_torch.data.synthetic, "
@@ -133,10 +134,27 @@ def test_serve_refuses_params_on_another_device():
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch, item in (("mamba2-1.3b", "The other families"),
+    for arch, item in (("paligemma-3b", "The other families"),
                        ("whisper-large-v3", "The other families")):
         with pytest.raises(NotImplementedError, match=item):
             init(get_config(arch).reduced(), device="cpu")
+
+
+def test_ssm_on_a_mesh_names_the_sharded_ssm():
+    """On a two-rank CPU mesh, forward and serve of an SSM model raise with
+    the sharded SSM's ROADMAP item."""
+    from repro_torch.launch.mesh import spawn
+    from _torch_mesh_worker import ssm_on_a_mesh
+    for rank in spawn(ssm_on_a_mesh, 2, timeout=120, collective_timeout=60):
+        for call in ("forward", "serve"):
+            assert rank[call] and "*Multi-device*, the sharded SSM" in rank[call], rank
+
+
+def test_continuous_engine_refuses_ssm_families():
+    """As the reference's: --engine continuous serves KV-cache families only."""
+    with pytest.raises(SystemExit, match="family='ssm'"):
+        TS.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
+                 "--engine", "continuous"])
 
 
 def test_cpu_tensors_launch_no_kernel():
