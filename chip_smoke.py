@@ -41,7 +41,9 @@ Phases (any failure exits non-zero before the final line):
   3. first the init check: ``init(cfg, 0)`` of reduced qwen3-0.6b and
      reduced dbrx-132b on the card torch.equal the same on the CPU moved to
      the card (weights are drawn on the host for every device); then
-     qwen3-0.6b at full width served (4 prompts x 16 tokens, 16 generated)
+     qwen3-0.6b at full width, its depth cut from 28 to 14 layers
+     (``QWEN_LAYERS``; every later qwen3-0.6b phase runs this cut), served
+     (4 prompts x 16 tokens, 16 generated)
      under the 91-bit FDP kernel policy, with the kernel's launch count
      set to 0 just before the first run and read just after it, and held
      against the FDP dispatches; then timing repeats in turns with the same
@@ -268,7 +270,7 @@ Phases (any failure exits non-zero before the final line):
      seconds by part, peak memory, every collective by op, size and dtype,
      and the serves' tok/s;
  23. the Mamba-2 families at published widths (``ssm_phase``): (a)
-     mamba2-1.3b cut from 48 to 24 layers, (b) zamba2-2.7b cut to 12
+     mamba2-1.3b cut from 48 to 12 layers, (b) zamba2-2.7b cut to 12
      layers (two groups, the shared attention + MLP block after each;
      head_dim 80),
      each drawn from seed 0 on the host: the dense kernel torch.equal its
@@ -288,7 +290,40 @@ Phases (any failure exits non-zero before the final line):
      one group; draws of that depth) on 1 x 8 tokens; the weights freed
      after each model (no host copy is kept); the
      seconds and the peak memory by part;
- 24. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 24. the encoder-decoder and VLM families at published widths
+     (``family_phase``): (a) whisper-large-v3 (d 1280, 20 heads x 64, d_ff
+     5120, vocab 51866, 1500 encoder frames) cut from 32 + 32 to 4 + 4
+     layers, (b) paligemma-3b (d 2048, 8 query heads on 1 KV head x 256, d_ff
+     16384, vocab 257216, 256 patches) cut from 18 to 2 layers, each drawn
+     from seed 0 on the host: the dense kernel torch.equal its plain version
+     at each new shape (whisper's encoder prefill over 4 x 1500 frames, its
+     cross K/V, the non-causal attention over two chunks of 1024 keys, the
+     cross-attention and the self-attention at decode, the decoder's
+     projections and LM head; paligemma's decode sites, its MQA attention
+     at head_dim 256, the forward's attention and MLP over 256 patches and
+     16 tokens), the plain version on 64 rows and 4096 columns of each
+     output where the shape is larger, the kernel timed on the whole shape
+     beside its bound; a serve of phase 3's request shape under
+     FDP91_KERNEL (whisper: ``prefill`` + greedy ``decode_step`` with 0.5 x
+     normal frames; paligemma: ``launch.serve.serve``) with the launch
+     count set to 0 just before and read just after, equal to the FDP
+     dispatches and to the prefill's plus the steps times a step's; the
+     same again under torch.profiler (tokens and every step's logits
+     bit-equal; device busy, idle share, the dense kernel's seconds); under
+     MXU_FP32 and under the checked-in zoo plan (``whisper_large_v3.json``,
+     ``paligemma_3b.json``, unchanged: no FDP launch); whisper: the
+     reference-shaped ``serve`` with zero frames, run once, the cached cross
+     K/V torch.equal a fresh ``cross_k``/``cross_v`` dispatch of the encoder
+     output, ``forward`` of 4 x 16 tokens within 1e-3 x max |logit| of
+     prefill's step logits; paligemma: ``forward`` of 4 x (256 patches + 16
+     tokens) repeats bit for bit and the patches + 1.0 move the text
+     logits, a ``ContinuousBatcher`` graph engine of 4 slots gives the
+     serve's tokens (one capture, launches a step == FDP dispatches);
+     ``pallas`` == ``simulate`` logits on 1 x 8 tokens at whisper 1 + 1
+     layers over 32 frames and paligemma 1 layer over 8 patches (draws of
+     that depth); the weights freed after each model; the seconds and the
+     peak memory by part;
+ 25. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -329,6 +364,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 BATCH, PROMPT, GEN = 4, 16, 16
+# qwen3-0.6b, the main path of phases 3-4 and 14-22: full width, depth cut
+# from 28 to 14 layers for the script's time (phases 1-24 took 1179.44 s of
+# its 1200 s with all 28 on an H100 80GB HBM3 at 700 W with a slow host;
+# the host-bound serves, the tailoring, the workloads and the four-rank
+# world scale with the depth)
+QWEN_LAYERS = 14
 SERVE_RUNS = 3
 TRACED_STEPS = 8        # engine steps traced for kernel events and idle share
 MOE_LAYERS = 1          # dbrx-132b depth cut: 17.97 GB of f32 parameters, one draw
@@ -382,8 +423,9 @@ MESH_GEMM, MESH_PSUM = (64, 1024, 3072), 1 << 20
 SHARD_SEQ, SHARD_TOL, SHARD_MOE_TOL, SHARD_EP_CF = 64, 1e-4, (2e-4, 2e-5), 4.0
 # Phase 23, the Mamba-2 families at published widths: (architecture, depth
 # served, depth of the pallas == simulate check, its zoo plan), each cut for
-# the script's time: mamba2-1.3b from 48 to 24 layers (a run of the whole
-# script with all 48 took 1111.21 s of phases on a slow host), zamba2-2.7b
+# the script's time: mamba2-1.3b from 48 to 12 layers (a run of the whole
+# script with all 48 took 1111.21 s of phases on a slow host, one with 24
+# and phase 24 1179.44 s), zamba2-2.7b
 # from 54 to 12 (two groups of six SSM layers, each followed by the shared
 # block), whose pallas == simulate check runs one group. That check runs
 # SSM_EQ_SHAPE tokens (the plain version's cost grows with the rows); the
@@ -391,9 +433,26 @@ SHARD_SEQ, SHARD_TOL, SHARD_MOE_TOL, SHARD_EP_CF = 64, 1e-4, (2e-4, 2e-5), 4.0
 # padded) is held to prefill's step recurrence within SSM_FWD_TOL x max
 # |logit| (the two SSD forms sum in other orders in f32, through every
 # layer)
-SSM_ARCHS = (("mamba2-1.3b", 24, 2, "mamba2_1p3b.json"),
+SSM_ARCHS = (("mamba2-1.3b", 12, 2, "mamba2_1p3b.json"),
              ("zamba2-2.7b", 12, 6, "zamba2_2p7b.json"))
 SSM_EQ_SHAPE, SSM_FWD_SHAPE, SSM_FWD_TOL = (1, 8), (4, 72), 1e-3
+# Phase 24, the encoder-decoder and VLM families at published widths:
+# (architecture, the depth cut of the served model, the cut of the pallas ==
+# simulate check's draw, its zoo plan). whisper-large-v3 is cut from 32 + 32
+# to 4 + 4 layers (0.37 G f32 parameters) and paligemma-3b from 18 to 2
+# (1.27 G: its embedding and LM head alone are 1.05 G), both for the
+# script's time; the check runs 1 + 1 layers over 32 frames and 1 layer
+# over 8 patches, on FAMILY_EQ_SHAPE tokens (the plain version's cost grows
+# with the rows). The plain version of the dense kernel runs on
+# FAMILY_CHECK_ROWS rows and FAMILY_CHECK_COLS columns of each new shape
+# (on whisper's 6000 encoder rows it would take ~50 s); whisper's forward is
+# held to prefill's steps within FAMILY_FWD_TOL x max |logit|
+FAMILY_ARCHS = (("whisper-large-v3", {"n_enc_layers": 4, "n_layers": 4},
+                 {"n_enc_layers": 1, "n_layers": 1, "enc_seq": 32}, "whisper_large_v3.json"),
+                ("paligemma-3b", {"n_layers": 2}, {"n_layers": 1, "n_patches": 8},
+                 "paligemma_3b.json"))
+FAMILY_EQ_SHAPE, FAMILY_FWD_TOL = (1, 8), 1e-3
+FAMILY_CHECK_ROWS, FAMILY_CHECK_COLS = 64, 4096
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -1821,7 +1880,7 @@ def mesh_rank(dev, arch: str, refs: dict) -> dict:
     part("a: the other collectives")
 
     # -- (b) qwen3-0.6b at full width, data-parallel --------------------------
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=QWEN_LAYERS)
     # every rank draws seed 0 on its host at once (init draws on the host for
     # every device), which takes no longer than one draw and a 3 GB
     # broadcast through gloo would; a checksum a parameter, maximized and
@@ -2419,45 +2478,63 @@ def ssm_sites(cfg) -> dict:
     return sites
 
 
-def ssm_kernel_shapes(torch, dev, cfg, gen) -> dict:
-    """The dense kernel at each of ``ssm_sites(cfg)`` on random fp32
-    operands (the weight broadcast over the batch, as ``dense`` passes it;
-    the attention GEMMs batched): torch.equal its plain version (that call
-    timed by CUDA events: the plain version of a batched attention call
-    loops over its 128 batch elements, ~1 s), the kernel's CUDA-event ms
-    (warm, back to back) and the bound."""
+def kernel_shapes(torch, dev, name: str, sites: dict, gen, check_rows: int = 0,
+                  check_cols: int = 0) -> dict:
+    """The dense kernel at each of ``sites`` (label -> (B, M, K, N,
+    broadcast)) on random fp32 operands (a broadcast weight expanded over
+    the batch, as ``dense`` passes it; else batched, as the attention
+    GEMMs): torch.equal its plain version (that call timed by CUDA events),
+    the kernel's CUDA-event ms (warm, back to back) and the bound. With
+    ``check_rows``/``check_cols`` the plain version runs on a corner of the
+    output (an output element depends only on its row of a and its column
+    of b): the first ``check_rows`` rows of the first batch element (of
+    every batch element when they hold at most 128 rows in all) and the
+    first ``check_cols`` columns; the kernel runs the whole shape."""
     from repro_torch.core.accumulator import AccumulatorSpec
     from repro_torch.core.formats import FP32
     from repro_torch.kernels import fdp_gemm as K
     P91 = AccumulatorSpec.paper_91bit()
     out = {}
-    for site, (B, M, Kd, N) in ssm_sites(cfg).items():
-        bcast = site not in ("attn_qk", "attn_av")
+    for site, (B, M, Kd, N, bcast) in sites.items():
         a = FP32.quantize(torch.randn(B, M, Kd, generator=gen, device=dev))
         b = FP32.quantize(torch.randn(1 if bcast else B, Kd, N, generator=gen, device=dev)
                           * Kd ** -0.5)
         b = b.expand(B, Kd, N)
         got = K.fdp_gemm(a, b, spec=P91, fmt=FP32)
+        mr = min(M, check_rows) if check_rows else M
+        nb = B if B * mr <= 128 or not check_rows else 1
+        nc = min(N, check_cols) if check_cols else N
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        want = K.fdp_gemm_plain(a, b, spec=P91, fmt=FP32)
+        want = K.fdp_gemm_plain(a[:nb, :mr], b[:nb, :, :nc], spec=P91, fmt=FP32)
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        if got.shape != (B, M, N) or not torch.equal(got, want):
-            fail(f"{cfg.name} {site} {(B, M, Kd, N)}: the dense kernel != its plain version "
-                 f"(max |diff| {(got - want).abs().max().item()})")
-        ms = cuda_ms(torch, lambda: K.fdp_gemm(a, b, spec=P91, fmt=FP32),
-                     reps=20 if site == "lm_head" else 50)
+        if got.shape != (B, M, N) or not torch.equal(got[:nb, :mr, :nc], want):
+            fail(f"{name} {site} {(B, M, Kd, N)}: the dense kernel != its plain version "
+                 f"(max |diff| {(got[:nb, :mr, :nc] - want).abs().max().item()})")
         b_elems = (1 if bcast else B) * Kd * N
         ops_n = K.int32_ops(B * M * Kd, b_elems, B * M * Kd * N)
+        bnd = bound(4 * (B * M * Kd + b_elems + B * M * N), ops_n)
+        reps = 3 if bnd["bound_ms"] > 5 else 20 if bnd["bound_ms"] > 0.3 else 50
+        ms = cuda_ms(torch, lambda: K.fdp_gemm(a, b, spec=P91, fmt=FP32), reps=reps)
+        at = "" if (nb, mr, nc) == (B, M, N) else f" on [{nb}, {mr}, {nc}] of the output"
         out[site] = {"shape": [B, M, Kd, N], "ms": ms, "plain_ms": plain_ms,
-                     **bound(4 * (B * M * Kd + b_elems + B * M * N), ops_n)}
-        log(f"  {cfg.name} {site:8s} {(B, M, Kd, N)}: kernel torch.equal plain; "
-            f"{ms:.4f} ms, bound {out[site]['bound_ms']:.4f} ms ({out[site]['bound_by']}) = "
-            f"{100 * out[site]['bound_ms'] / ms:.1f}% of bound; plain {plain_ms:.2f} ms")
+                     "plain_at": [nb, mr, nc], **bnd}
+        log(f"  {name} {site:8s} {(B, M, Kd, N)}: kernel torch.equal plain{at}; "
+            f"{ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) = "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of bound; plain {plain_ms:.2f} ms{at}")
         del a, b, got, want
     return out
+
+
+def ssm_kernel_shapes(torch, dev, cfg, gen) -> dict:
+    """The dense kernel at each of ``ssm_sites(cfg)`` (``kernel_shapes``,
+    the plain version on the whole shape: a batched attention call's loops
+    over its 128 batch elements, ~1 s)."""
+    return kernel_shapes(torch, dev, cfg.name,
+                         {site: (*shape, site not in ("attn_qk", "attn_av"))
+                          for site, shape in ssm_sites(cfg).items()}, gen)
 
 
 def ssm_model_part(torch, dev, cfg, eq_layers: int, zoo_file: str) -> dict:
@@ -2652,6 +2729,362 @@ def ssm_phase(torch, dev) -> dict:
     return out
 
 
+def family_sites(cfg) -> dict:
+    """The dense kernel's (B, M, K, N, weight broadcast) at the shapes
+    ``cfg`` (whisper-large-v3 or paligemma-3b) gives it serving BATCH
+    prompts of PROMPT tokens: for encdec the encoder's prefill over
+    ``enc_seq`` frames (its projections and the decoder's cross K/V with
+    the weight folded into the rows, and the non-causal attention over
+    chunks of ``attn_chunk`` keys, the last padded), the cross-attention and
+    the self-attention at decode (a cache of PROMPT + GEN positions), the
+    decoder's projections and the LM head; for vlm the decode sites and the
+    forward's attention and MLP over the patches and the prompt."""
+    d, hd, V = cfg.d_model, cfg.head_dim, cfg.padded_vocab
+    hq, hkv, G = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_heads // cfg.n_kv_heads
+    bkh, smax, chunk = BATCH * cfg.n_kv_heads, PROMPT + GEN, cfg.attn_chunk
+    sites = {}
+    if cfg.family == "encdec":
+        T = cfg.enc_seq
+        sites.update({"enc attn_q/k/v/o, cross_k/v": (BATCH, T, d, hq, True),
+                      "enc mlp_in/gate": (BATCH, T, d, cfg.d_ff, True),
+                      "enc mlp_out": (BATCH, T, cfg.d_ff, d, True),
+                      "enc attn_qk": (bkh, G * T, hd, chunk, False),
+                      "enc attn_av": (bkh, G * T, chunk, hd, False),
+                      "cross attn_qk": (bkh, G, hd, chunk, False),
+                      "cross attn_av": (bkh, G, chunk, hd, False)})
+    sites.update({"attn_q/o": (BATCH, 1, d, hq, True), "attn_k/v": (BATCH, 1, d, hkv, True),
+                  "attn_qk": (bkh, G, hd, smax, False), "attn_av": (bkh, G, smax, hd, False),
+                  "mlp_in/gate": (BATCH, 1, d, cfg.d_ff, True),
+                  "mlp_out": (BATCH, 1, cfg.d_ff, d, True), "lm_head": (BATCH, 1, d, V, True)})
+    if cfg.family == "vlm":
+        S = cfg.n_patches + PROMPT
+        sites.update({"fwd attn_qk": (bkh, G * S, hd, chunk, False),
+                      "fwd attn_av": (bkh, G * S, chunk, hd, False),
+                      "fwd mlp_in/gate": (BATCH, S, d, cfg.d_ff, True)})
+    return sites
+
+
+def family_dispatches(cfg) -> tuple:
+    """(FDP dispatches of the prefill before its steps, of a decode step)
+    of whisper-large-v3 or paligemma-3b under a policy with every site FDP.
+    A decode step: self-attention q, k, v, qk, av, o; for encdec the
+    cross-attention q, o and qk, av a chunk of the encoder's keys; the MLP;
+    then the LM head. An encdec prefill runs the encoder (q, k, v, o, the
+    MLP and qk, av a chunk) and each decoder layer's cross_k and cross_v."""
+    mlp = 3 if cfg.d_ff else 0
+    if cfg.family != "encdec":
+        return 0, cfg.n_layers * (6 + mlp) + 1
+    nc = -(-cfg.enc_seq // cfg.attn_chunk)
+    return (cfg.n_enc_layers * (4 + 2 * nc + mlp) + 2 * cfg.n_layers,
+            cfg.n_layers * (6 + 2 + 2 * nc + mlp) + 1)
+
+
+def family_model_part(torch, dev, cfg, eq_over: dict, zoo_file: str) -> dict:
+    """Phase 24 on whisper-large-v3 (encdec) or paligemma-3b (vlm) at
+    published widths, drawn from seed 0: the dense kernel at
+    ``family_sites`` (the plain version on FAMILY_CHECK_ROWS rows and
+    FAMILY_CHECK_COLS columns of each); a serve of BATCH x PROMPT prompts,
+    GEN generated, under FDP91_KERNEL with the launch count set to 0 just
+    before and read just after (== FDP dispatches == ``family_dispatches``):
+    for encdec prefill + greedy ``decode_step`` with 0.5 x normal frames
+    (``launch.serve.serve`` gives zero frames: run once apart), for vlm
+    ``launch.serve.serve``; the same again under torch.profiler (tokens and
+    every step's logits bit-equal); under MXU_FP32 and the zoo plan (no FDP
+    launch). encdec: the cached cross K/V equal a fresh ``cross_k``/
+    ``cross_v`` dispatch of the encoder output; ``forward`` within
+    FAMILY_FWD_TOL x max |logit| of prefill's step logits. vlm: ``forward``
+    of BATCH x (n_patches + PROMPT) repeats bit for bit and moving the
+    patches moves the text logits; a ContinuousBatcher graph engine of
+    BATCH slots gives the serve's tokens. Then ``pallas`` == ``simulate``
+    logits on a draw cut by ``eq_over`` (FAMILY_EQ_SHAPE tokens). Frees the
+    weights. Returns its numbers, and seconds and peak memory by part."""
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.serve import FDP91_KERNEL
+    from repro_torch.models import forward, init
+    from repro_torch.models import transformer as T
+    secs, peak_gb, clock = {}, {}, [time.perf_counter()]
+    encdec = cfg.family == "encdec"
+    V = cfg.vocab_size
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
+        clock[0] = now
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init(cfg, seed=0, device=dev)          # no host copy: nothing draws it again
+    torch.cuda.synchronize()
+    lap("draw")
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if encdec else f"{cfg.n_layers}")
+    log(f"init {cfg.name} at {depth} layers, full width: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} G f32 parameters drawn in "
+        f"{secs['draw']:.2f} s")
+    log(f"{cfg.name}: the dense kernel at its new shapes")
+    shapes = kernel_shapes(torch, dev, cfg.name, family_sites(cfg),
+                           torch.Generator(device=dev).manual_seed(24),
+                           FAMILY_CHECK_ROWS, FAMILY_CHECK_COLS)
+    lap("kernel_shapes")
+
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    extra, width = ("frames", cfg.enc_seq) if encdec else ("patches", cfg.n_patches)
+    extras = (0.5 * torch.randn((BATCH, width, cfg.d_model),
+                                generator=torch.Generator().manual_seed(24))).to(dev)
+    zoo = D.policy_from_plan(os.path.join(ROOT, "examples", "plans", zoo_file))
+
+    def greedy():
+        """encdec: prefill with ``extras`` as frames, then GEN greedy
+        steps, as ``serve`` steps; vlm: ``serve`` itself. (tokens, every
+        step's logits on the host, the cache or None)."""
+        if not encdec:
+            with recording_serve(torch, T) as pre_steps, \
+                    recording_serve(torch, serve_mod) as steps:
+                toks = serve_mod.serve(cfg, params, prompts, GEN, device=dev)
+            return toks, torch.stack([x[:, 0] for x in pre_steps + steps], 1), None
+        cache = T.init_cache(cfg, BATCH, PROMPT + GEN, dtype=torch.float32, device=dev)
+        with recording_serve(torch, T) as steps:
+            last, cache = T.prefill(params, cfg, {"tokens": prompts.to(dev), extra: extras},
+                                    cache)
+            tok, out = torch.argmax(last, dim=-1)[:, None], []
+            for _ in range(GEN):
+                out.append(tok)
+                logits, cache = T.decode_step(params, cfg, cache, tok)
+                tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        return torch.cat(out, 1), torch.stack([x[:, 0] for x in steps], 1), cache
+
+    def one_serve(policy):
+        with D.use_policy(policy):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = greedy()
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t
+
+    pre, per_step = family_dispatches(cfg)
+    expected = pre + (PROMPT + GEN) * per_step
+    D.reset_sites_seen()
+    K.fdp_gemm.launches = 0
+    (toks, logits, cache), fdp_s = one_serve(FDP91_KERNEL)
+    launches = K.fdp_gemm.launches
+    calls = D.site_calls()
+    n_fdp = sum(calls.values())
+    if toks.shape != (BATCH, GEN) or int(toks.min()) < 0 or int(toks.max()) >= V:
+        fail(f"{cfg.name}: served tokens malformed: shape {tuple(toks.shape)}")
+    if logits.shape != (BATCH, PROMPT + GEN, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits[..., :V]).all()):
+        fail(f"{cfg.name}: step logits {tuple(logits.shape)} malformed or not finite")
+    if not launches == n_fdp == expected:
+        fail(f"{cfg.name}: dense launches {launches}, FDP dispatches {n_fdp}, expected "
+             f"{pre} + {PROMPT + GEN} steps x {per_step} = {expected}")
+    held = {}
+
+    def traced_serve():
+        held["out"], wall = one_serve(FDP91_KERNEL)
+        return held["out"], wall
+
+    trace = trace_serve(torch, traced_serve)
+    again, logits_again, cache_again = held["out"]
+    if not torch.equal(again, toks) or not torch.equal(logits_again, logits):
+        fail(f"{cfg.name}: a second FDP91_KERNEL serve differs (tokens equal "
+             f"{torch.equal(again, toks)}, step logits equal "
+             f"{torch.equal(logits_again, logits)})")
+    del cache_again
+    (toks32, logits32, _), fp32_s = one_serve(D.MXU_FP32)
+    D.reset_sites_seen()
+    before = K.fdp_gemm.launches
+    (toks_zoo, _, _), zoo_s = one_serve(zoo)
+    zoo_calls = D.site_calls()
+    if K.fdp_gemm.launches != before or sum(zoo_calls.values()) != n_fdp:
+        fail(f"{cfg.name}: the zoo plan launched the FDP kernel or dispatched "
+             f"{sum(zoo_calls.values())} GEMMs, not {n_fdp}")
+    res = {}
+    if encdec:
+        # the reference-shaped serve: zero frames, from launch.serve.serve
+        with D.use_policy(FDP91_KERNEL):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            toks_zero = serve_mod.serve(cfg, params, prompts, GEN, device=dev)
+            torch.cuda.synchronize()
+            res["zero_frames_serve"] = {"s": time.perf_counter() - t, "tokens_agree": float(
+                (toks_zero == toks).float().mean())}
+        log(f"  launch.serve.serve (zero frames, as the reference's) under "
+            f"{FDP91_KERNEL.name}: {res['zero_frames_serve']['s']:.3f} s = "
+            f"{BATCH * GEN / res['zero_frames_serve']['s']:.2f} tok/s; tokens agree with the "
+            f"frames' serve {100 * res['zero_frames_serve']['tokens_agree']:.1f}%")
+    lap("serves")
+    tok_s = BATCH * GEN / fdp_s
+    log(f"serve {cfg.name} ({depth} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {V}"
+        + (f", enc_seq {cfg.enc_seq}" if encdec else f", {cfg.n_patches} patches")
+        + f") under {FDP91_KERNEL.name}: batch {BATCH} prompt {PROMPT} gen {GEN}"
+        + (" with 0.5 x normal frames (prefill + greedy decode_step)" if encdec else
+           " (launch.serve.serve, zero patches)")
+        + f"; dense launches {launches} == FDP dispatches {n_fdp} == {pre} + "
+        f"{PROMPT + GEN} steps x {per_step}; {fdp_s:.3f} s = {tok_s:.2f} tok/s (each step's "
+        f"logits copied to the host); a second, traced run repeats the tokens and every "
+        f"step's logits bit for bit")
+    log(f"  {D.MXU_FP32.name}: {fp32_s:.3f} s = {BATCH * GEN / fp32_s:.2f} tok/s, tokens agree "
+        f"{100 * float((toks32 == toks).float().mean()):.1f}%, last logits max |diff| "
+        f"{(logits32 - logits)[:, -1, :V].abs().max().item():.3e}; zoo plan {zoo.name!r} "
+        f"(examples/plans/{zoo_file}, unchanged, every site native): {zoo_s:.3f} s = "
+        f"{BATCH * GEN / zoo_s:.2f} tok/s, 0 FDP launches, tokens agree "
+        f"{100 * float((toks_zoo == toks).float().mean()):.1f}%")
+    if trace is None:
+        log("  traced serve: torch.profiler recorded no device events; device busy and "
+            "idle share not measured")
+    else:
+        log(f"  traced {FDP91_KERNEL.name} serve (torch.profiler): wall {trace['wall_s']:.3f} s, "
+            f"device busy {trace['device_busy_s']:.3f} s, idle share "
+            f"{100 * trace['idle_share']:.1f}%, {trace['device_events']} device events; "
+            f"dense kernel {trace['kernels']['fdp_gemm']['count']} in "
+            f"{trace['kernels']['fdp_gemm']['s']:.3f} s, outside it "
+            f"{trace['device_busy_s'] - trace['fdp_kernel_s']:.3f} s busy; top: "
+            + "; ".join(f"{n} {x:.3f} s" for n, x in trace["top"]))
+
+    if encdec:
+        with D.use_policy(FDP91_KERNEL), torch.no_grad():
+            enc = T._encode(params, cfg, extras)
+            for i, blk in enumerate(params.dec_layers):
+                kc, vc = T._cross_kv(enc, blk, cfg)
+                if not (torch.equal(cache["cross"]["k"][i], kc)
+                        and torch.equal(cache["cross"]["v"][i], vc)):
+                    fail(f"{cfg.name}: decoder layer {i}'s cached cross K/V != a fresh "
+                         f"cross_k/cross_v dispatch of the encoder output")
+            del enc, kc, vc, cache
+            full = forward(params, cfg, {"tokens": prompts.to(dev), extra: extras})[..., :V]
+        stepped = logits[:, :PROMPT, :V]
+        if full.shape != stepped.shape or not bool(torch.isfinite(full).all()):
+            fail(f"{cfg.name}: forward's logits {tuple(full.shape)} malformed or not finite")
+        diff = (full.cpu() - stepped).abs()
+        scale = stepped.abs().max().item()
+        top1 = float((full.cpu().argmax(-1) == stepped.argmax(-1)).float().mean())
+        res["forward_vs_prefill"] = {
+            "max_abs_diff": diff.max().item(), "last_max_abs_diff": diff[:, -1].max().item(),
+            "max_abs_logit": scale, "tol": FAMILY_FWD_TOL, "top1_agree": top1}
+        log(f"  the cached cross K/V of all {cfg.n_layers} decoder layers torch.equal a fresh "
+            f"cross_k/cross_v dispatch of the encoder output; forward {(BATCH, PROMPT)} "
+            f"against prefill's per-token logits under {FDP91_KERNEL.name}: max |diff| "
+            f"{diff.max().item():.3e} ({diff.max().item() / scale:.2e} x max |logit| "
+            f"{scale:.3f}; gate {FAMILY_FWD_TOL:g}), at the last position "
+            f"{diff[:, -1].max().item():.3e}; top-1 agree {100 * top1:.2f}%")
+        if diff.max().item() > FAMILY_FWD_TOL * scale:
+            fail(f"{cfg.name}: forward is {diff.max().item():.3e} from prefill, past "
+                 f"{FAMILY_FWD_TOL:g} x {scale:.3f}")
+        del full, stepped, diff
+        lap("forward_vs_prefill")
+    else:
+        batch = {"tokens": prompts.to(dev), extra: extras}
+        with D.use_policy(FDP91_KERNEL), torch.no_grad():
+            first = forward(params, cfg, batch)
+            second = forward(params, cfg, batch)
+            moved = forward(params, cfg, dict(batch, patches=extras + 1.0))
+        S = cfg.n_patches + PROMPT
+        text_diff = (first[:, cfg.n_patches:, :V] - moved[:, cfg.n_patches:, :V]).abs().max()
+        if first.shape != (BATCH, S, cfg.padded_vocab) or not bool(
+                torch.isfinite(first[..., :V]).all()):
+            fail(f"{cfg.name}: forward's logits {tuple(first.shape)} malformed or not finite")
+        if not torch.equal(first, second):
+            fail(f"{cfg.name}: a second forward of {(BATCH, S)} positions differs")
+        if not text_diff.item() > 1e-4:
+            fail(f"{cfg.name}: moving the patches by 1.0 moved the text logits by "
+                 f"{text_diff.item():.3e} only")
+        res["forward"] = {"positions": S, "patches_move_text_logits": text_diff.item()}
+        log(f"  forward of {BATCH} x ({cfg.n_patches} patches + {PROMPT} tokens) under "
+            f"{FDP91_KERNEL.name}: repeats bit for bit; the patches + 1.0 move the text "
+            f"logits by up to {text_diff.item():.3e} (the prefix reaches the text)")
+        del first, second, moved
+        lap("forward")
+        from repro_torch.launch.batching import ContinuousBatcher, Request
+        K.fdp_gemm.launches = K.fdp_gemm.captured = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng = ContinuousBatcher(cfg, params, n_slots=BATCH, max_len=PROMPT + 2 * GEN + 2,
+                                warmup=FDP91_KERNEL)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        reqs = [Request(uid=i, prompt=row.tolist(), max_new=GEN)
+                for i, row in enumerate(prompts)]
+        t = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        torch.cuda.synchronize()
+        eng_s = time.perf_counter() - t
+        eng_toks = torch.tensor([r.out for r in reqs])
+        if eng.capture_count != 1 or eng.step_launches != {
+                "fdp_gemm": sum(eng.step_dispatches.values())}:
+            fail(f"{cfg.name}: graph engine captures {eng.capture_count}, launches a step "
+                 f"{eng.step_launches}, FDP dispatches a step {eng.step_dispatches}")
+        if not torch.equal(eng_toks, toks.cpu()):
+            fail(f"{cfg.name}: the graph engine's tokens differ from the serve's")
+        res["graph_engine"] = {"build_s": build_s, "run_s": eng_s,
+                               "tok_s": sum(len(r.out) for r in reqs) / eng_s,
+                               "warmup_launches": K.fdp_gemm.launches,
+                               "captured_launches": K.fdp_gemm.captured,
+                               "steps": eng.replays}
+        log(f"  ContinuousBatcher, {BATCH} slots, one CUDA graph under {FDP91_KERNEL.name}: "
+            f"built and captured in {build_s:.2f} s ({K.fdp_gemm.captured} launches "
+            f"captured a step == its FDP dispatches), {eng.replays} replays in "
+            f"{eng_s:.3f} s = {res['graph_engine']['tok_s']:.2f} tok/s; tokens equal the "
+            f"serve's")
+        del eng
+        lap("graph_engine")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path at model level
+    ecfg = dataclasses.replace(cfg, **eq_over)
+    eparams = init(ecfg, seed=0, device=dev)
+    batch = {"tokens": torch.randint(0, V, FAMILY_EQ_SHAPE,
+                                     generator=torch.Generator().manual_seed(2)).to(dev),
+             extra: (0.5 * torch.randn((FAMILY_EQ_SHAPE[0], getattr(ecfg, (
+                 "enc_seq" if encdec else "n_patches")), cfg.d_model),
+                 generator=torch.Generator().manual_seed(3))).to(dev)}
+    simulate = D.NumericsPolicy(dataclasses.replace(FDP91_KERNEL.default, mode="simulate"))
+    with torch.no_grad():
+        with D.use_policy(FDP91_KERNEL):
+            lk = forward(eparams, ecfg, batch)
+        with D.use_policy(simulate):
+            ls = forward(eparams, ecfg, batch)
+    n_pos = FAMILY_EQ_SHAPE[1] + (0 if encdec else ecfg.n_patches)
+    if lk.shape != (FAMILY_EQ_SHAPE[0], n_pos, ecfg.padded_vocab) or not torch.equal(lk, ls):
+        fail(f"{cfg.name} cut to {eq_over}: pallas != simulate logits "
+             f"(max |diff| {(lk - ls).abs().max().item()})")
+    log(f"  {cfg.name} cut to {eq_over}, full width, forward {FAMILY_EQ_SHAPE} + {extra}: "
+        f"pallas logits torch.equal simulate logits")
+    del eparams, lk, ls
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("pallas_vs_simulate")
+    return {"depth": depth, "launches": launches, "dispatches": {"prefill": pre,
+                                                                 "a_step": per_step},
+            "calls": calls, "shapes": shapes, "fdp_serve_s": fdp_s, "tok_s": tok_s,
+            "fp32_tok_s": BATCH * GEN / fp32_s, "zoo_tok_s": BATCH * GEN / zoo_s,
+            "tokens": toks.tolist(),
+            "trace": trace and {k: v for k, v in trace.items() if k != "top"},
+            **res, "seconds": secs, "peak_gb": peak_gb}
+
+
+def family_phase(torch, dev) -> dict:
+    """Phase 24: ``family_model_part`` for each of FAMILY_ARCHS; logs the
+    seconds and the peak memory by part."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, cut, eq_over, zoo_file in FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        out[arch] = family_model_part(torch, dev, cfg, eq_over, zoo_file)
+    log("phase 24 seconds (peak GB allocated) by part: " + "; ".join(
+        f"{arch} " + ", ".join(f"{k} {v:.2f} ({r['peak_gb'][k]:.2f})"
+                               for k, v in r["seconds"].items())
+        for arch, r in out.items()))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2765,7 +3198,7 @@ def main() -> None:
         return n_sat
 
     # the slice's decode shapes at full width: (B, M, K, N) per site
-    cfg = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=QWEN_LAYERS)
     d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     smax, G = PROMPT + GEN, cfg.n_heads // cfg.n_kv_heads
@@ -4426,12 +4859,16 @@ def main() -> None:
     phase("23")
     ssm = ssm_phase(torch, dev)
 
+    # -- 24. the encoder-decoder and VLM families at published widths -------------
+    phase("24")
+    families = family_phase(torch, dev)
+
     phase("")
     PHASE_S["18"] -= ref18_s
     PHASE_S["21"] -= mesh["p22_wall_s"] + ref21_s
     PHASE_S["22"] = p22_s
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-23 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-24 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -4446,7 +4883,9 @@ def main() -> None:
                      + monitored_launches
                      + autotune_launches_total + sched["dense_launches_on_persisted"]
                      + mesh["launches"] + mesh["p22"]["launches"]["fdp_gemm"]
-                     + sum(r["launches"] for r in ssm.values())),
+                     + sum(r["launches"] for r in ssm.values())
+                     + sum(r["launches"] + r.get("graph_engine", {}).get("warmup_launches", 0)
+                           for r in families.values())),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -4468,7 +4907,12 @@ def main() -> None:
                              "sharded forward and serves, summed over 4 ranks on the card "
                              "(phase 22)": mesh["p22"]["launches"]["fdp_gemm"],
                              **{f"{arch} serve, {r['layers']} layers (phase 23)": r["launches"]
-                                for arch, r in ssm.items()}},
+                                for arch, r in ssm.items()},
+                             **{f"{arch} serve, {r['depth']} layers (phase 24)": r["launches"]
+                                for arch, r in families.items()},
+                             **{f"{arch} graph engine's two warm-up steps (phase 24)":
+                                r["graph_engine"]["warmup_launches"]
+                                for arch, r in families.items() if "graph_engine" in r}},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -4488,7 +4932,7 @@ def main() -> None:
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
         "continuous": continuous, "routed_serving": routed, "schedules": sched,
         "mesh": {k: v for k, v in mesh.items() if k != "launches"},
-        "ssm_families": ssm,
+        "ssm_families": ssm, "encdec_vlm_families": families,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

@@ -1,14 +1,19 @@
 """Batched serving entry point (counterpart of ``repro.launch.serve``):
 prefill + greedy incremental decode with an f32 KV cache (an f32 conv and
-SSM state cache for the Mamba-2 layers of ``ssm`` and ``hybrid`` models).
+SSM state cache for the Mamba-2 layers of ``ssm`` and ``hybrid`` models;
+the encoder's cross K/V too for ``encdec``). As in the reference, ``serve``
+gives an encdec model zero ``frames`` and a vlm model zero ``patches``
+(which its prefill does not read).
 
 On the card, under the FDP kernel policy:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --policy fdp91_kernel
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --policy fdp91_kernel
-On the CPU at test size (any dense, MoE, SSM or hybrid architecture, e.g.
-dbrx-132b, mamba2-1.3b or zamba2-2.7b):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
+        --policy fdp91_kernel
+On the CPU at test size (any architecture, e.g. dbrx-132b, mamba2-1.3b,
+zamba2-2.7b, whisper-large-v3 or paligemma-3b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b \
         --reduced --device cpu
 
@@ -22,7 +27,7 @@ Under a precision plan (per-site numerics loaded from JSON):
 is an error, so that it is never unclear which policy served.
 
 ``--engine continuous`` (KV-cache families only, as in the reference: the
-SSM and hybrid families serve on the simple engine) routes the same
+SSM, hybrid and encdec families serve on the simple engine) routes the same
 requests through the fixed-slot
 ``launch.batching.ContinuousBatcher``: one request a prompt row, a cache of
 ``prompt_len + 2 * gen + 2`` positions, the decode step captured in one CUDA
@@ -103,7 +108,12 @@ def serve(cfg, params, prompts, gen_len: int, device=None, dist=LOCAL) -> torch.
     rows = block_of(dist, B, 1)[0]
     cache = init_cache(cfg, rows.stop - rows.start, max_len=S + gen_len,
                        dtype=torch.float32, device=dev)
-    last_logits, cache = prefill(params, cfg, {"tokens": prompts}, cache, dist)
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((B, cfg.n_patches, cfg.d_model), device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, cfg.enc_seq, cfg.d_model), device=dev)
+    last_logits, cache = prefill(params, cfg, batch, cache, dist)
     out = []
     tok = torch.argmax(last_logits, dim=-1)[:, None]
     for _ in range(gen_len):

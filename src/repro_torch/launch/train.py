@@ -110,8 +110,22 @@ def main(argv=None):
                               fdp_grad_spec=fdp_spec, numerics_policy=policy)
     data_src = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=0, device=dev)
 
+    def data(step):
+        """The step's synthetic batch plus the family's extras, as the
+        reference's: zero vlm patches, encdec frames from a normal draw
+        seeded with the step (on the CPU, the same on every device)."""
+        batch = data_src.batch(step).as_dict()
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((args.batch, cfg.n_patches, cfg.d_model),
+                                           device=dev)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((args.batch, cfg.enc_seq, cfg.d_model),
+                                          generator=torch.Generator().manual_seed(step)
+                                          ).to(dev)
+        return batch
+
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(cfg, opt, lambda step: data_src.batch(step).as_dict(), step_fn,
+        trainer = Trainer(cfg, opt, data, step_fn,
                           args.ckpt or tmp, save_every=args.save_every, device=dev)
         t0 = time.perf_counter()
         trainer.run(args.steps)

@@ -5,8 +5,9 @@ tree as a nested dict of numpy arrays (the caller runs
 ``jax.tree.map(np.asarray, params)`` on its side, so this package never sees
 JAX), unstacks the leading layer axes of ``tree["layers"]`` (one, or two for
 ``hybrid``: group, then position in the group) and copies every array into
-the port's ``Transformer``; other subtrees (the hybrid's ``shared`` block)
-carry no layer axis. ``params_to_numpy`` is its inverse: the reference's
+the port's ``Transformer``; an encdec tree's ``enc_layers`` and
+``dec_layers`` carry one layer axis each (``LAYER_STACKS``); other subtrees
+(the hybrid's ``shared`` block, ``enc_norm``) carry none. ``params_to_numpy`` is its inverse: the reference's
 tree of numpy arrays, from the module's parameters or from any
 ``{parameter name: tensor}`` dict (gradients, optimizer moments), so two
 trees can be compared leaf by leaf.
@@ -23,11 +24,21 @@ from .config import ModelConfig
 from .transformer import Transformer, n_groups
 
 
-def _layer_axes(cfg: ModelConfig) -> tuple:
-    """The leading axes of the reference's ``layers`` leaves."""
+# the reference's subtrees whose leaves stack their layers
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def _layer_axes(cfg: ModelConfig, stack: str = "layers") -> tuple:
+    """The leading axes of the leaves of the reference's ``stack``."""
+    if stack == "enc_layers":
+        return (cfg.n_enc_layers,)
     if cfg.family == "hybrid":
         return (n_groups(cfg), cfg.attn_every)
     return (cfg.n_layers,)
+
+
+def _n_layers(cfg: ModelConfig, stack: str) -> int:
+    return cfg.n_enc_layers if stack == "enc_layers" else cfg.n_layers
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Transformer:
@@ -44,9 +55,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Transformer:
                 flat[f"{prefix}{key}"] = np.asarray(val)[index]
 
     for key, val in tree.items():
-        if key == "layers":
-            for i in range(cfg.n_layers):
-                walk(f"layers.{i}.", val, np.unravel_index(i, _layer_axes(cfg)))
+        if key in LAYER_STACKS:
+            for i in range(_n_layers(cfg, key)):
+                walk(f"{key}.{i}.", val, np.unravel_index(i, _layer_axes(cfg, key)))
         elif isinstance(val, dict):
             walk(f"{key}.", val)
         else:
@@ -83,16 +94,19 @@ def params_to_numpy(params, cfg: ModelConfig) -> dict:
     for name, t in named.items():
         arr = t.detach().cpu().numpy()
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = arr
+        if parts[0] in LAYER_STACKS:
+            per_layer.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
         else:
             put(tree, parts, arr)
-    layers: dict = {}
-    for path, by_index in per_layer.items():
-        if sorted(by_index) != list(range(cfg.n_layers)):
-            raise ValueError(f"layers.*.{'.'.join(path)}: layers {sorted(by_index)}, "
-                             f"expected {cfg.n_layers}")
-        stacked = np.stack([by_index[i] for i in range(cfg.n_layers)])
-        put(layers, path, stacked.reshape(_layer_axes(cfg) + stacked.shape[1:]))
-    tree["layers"] = layers
+    stacks = ("enc_layers", "dec_layers") if cfg.family == "encdec" else ("layers",)
+    for stack in stacks:
+        tree[stack] = {}
+    for (stack, *path), by_index in per_layer.items():
+        n = _n_layers(cfg, stack)
+        if sorted(by_index) != list(range(n)):
+            raise ValueError(f"{stack}.*.{'.'.join(path)}: layers {sorted(by_index)}, "
+                             f"expected {n}")
+        stacked = np.stack([by_index[i] for i in range(n)])
+        put(tree.setdefault(stack, {}), path,
+            stacked.reshape(_layer_axes(cfg, stack) + stacked.shape[1:]))
     return tree

@@ -101,6 +101,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The reference's ``layer_norm`` (which no model calls): the population
+    variance of the last axis, in f32."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
 def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
@@ -245,7 +255,8 @@ def init_attention(gen, cfg, dtype=torch.float32, device=None) -> Attention:
 def attention_block(x: torch.Tensor, p: Attention, cfg, dist: Distribution = LOCAL, *,
                     causal: bool = True, prefix_len: int = 0,
                     positions: Optional[torch.Tensor] = None,
-                    kv_cache: Optional[dict] = None, site: str = "attn",
+                    kv_cache: Optional[dict] = None,
+                    kv_override: Optional[tuple] = None, site: str = "attn",
                     seq_sharded: bool = False):
     """Full attention sub-block. Returns (out, new_kv_cache | None).
 
@@ -254,6 +265,10 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, dist: Distribution = LOC
     are written into the cache tensors in place at positions [len, len + S)
     (``index_copy_`` at a device index: the reference returns updated
     copies); the returned cache shares them.
+
+    kv_override: precomputed (k, v), each (B, Hkv, Sk, hd) (whisper's
+    cross-attention): only q is projected from x, neither side gets RoPE,
+    and the sites are the self-attention's (``site``), as in the reference.
 
     With ``seq_sharded`` (a mesh, x the rank's block of S / tp positions, no
     cache), q stays the rank's block and K and V are all-gathered over
@@ -266,10 +281,13 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, dist: Distribution = LOC
     H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = dense(x, p.wq, site + "_q", p.bq)
     q = q.reshape(B, S, H, hd).transpose(1, 2)
-    k = dense(x, p.wk, site + "_k", p.bk)
-    v = dense(x, p.wv, site + "_v", p.bv)
-    k = k.reshape(B, S, Kh, hd).transpose(1, 2)
-    v = v.reshape(B, S, Kh, hd).transpose(1, 2)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k = dense(x, p.wk, site + "_k", p.bk)
+        v = dense(x, p.wv, site + "_v", p.bv)
+        k = k.reshape(B, S, Kh, hd).transpose(1, 2)
+        v = v.reshape(B, S, Kh, hd).transpose(1, 2)
 
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
@@ -277,8 +295,9 @@ def attention_block(x: torch.Tensor, p: Attention, cfg, dist: Distribution = LOC
 
     if positions is None:
         positions = offset + torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:                   # no RoPE on cross-attention
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if sp:
         # SP: q stays sequence-sharded; K/V are the (all-gathered) small side
         with use_mesh(dist.mesh):

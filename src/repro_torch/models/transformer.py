@@ -1,6 +1,9 @@
-"""Model assembly (counterpart of ``repro.models.transformer``), the dense,
-MoE, SSM (Mamba-2) and hybrid (Zamba2: SSM layers with one weight-shared
-attention + MLP block after every ``attn_every`` of them) families:
+"""Model assembly (counterpart of ``repro.models.transformer``), every
+family: dense, MoE, SSM (Mamba-2), hybrid (Zamba2: SSM layers with one
+weight-shared attention + MLP block after every ``attn_every`` of them),
+encdec (whisper: an encoder over ``frames``, decoder blocks with a
+cross-attention to its output) and vlm (PaliGemma: ``patches`` ahead of the
+text, a bidirectional prefix over them):
 
     params = init(cfg, seed, device)               # a Transformer module
     logits = forward(params, cfg, batch)           # train / prefill logits
@@ -15,15 +18,18 @@ block (``block_of``: the batch split over the dp axes, the sequence over
 that block of the logits; ``gather_block`` puts the blocks back together.
 ``prefill`` takes the global batch too and fills a cache of the rank's rows
 (all rows under ``joint_tp``); ``decode_step`` takes and returns those rows.
-The SSM and hybrid families raise on a mesh (``ssm.ssm_block``).
+The SSM and hybrid families raise on a mesh (``ssm.ssm_block``), the
+encdec and vlm families too (``refuse_mesh``).
 
 Parameters map one-to-one onto the reference's tree: its ``layers.*``
 leaves carry a leading layer axis (two for ``hybrid``: group, then position
 in the group), here ``layers[i].*`` is one module per layer, layer ``i``
 being group ``i // attn_every``, position ``i % attn_every``, and
-``shared.*`` the hybrid's one shared block (``models.convert`` unstacks and
-restacks). Layers run as a Python loop in place of the reference's
-``scan``; ``remat`` checkpoints each block (``dispatch.checkpoint``, whose
+``shared.*`` the hybrid's one shared block; an encdec model has
+``enc_layers[i]``, ``dec_layers[i]`` and ``enc_norm`` in place of
+``layers`` (``models.convert`` unstacks and restacks). Layers run as a
+Python loop in place of the reference's ``scan``; ``remat`` checkpoints
+each block (``dispatch.checkpoint``, whose
 recompute re-enters the forward's policy), where the reference remats a
 hybrid's whole group: the recompute gives the same bits either way.
 
@@ -47,14 +53,25 @@ from . import ssm as SSM
 from .config import ModelConfig, check_family
 
 SSM_FAMILIES = ("ssm", "hybrid")
+# families whose sharded forward is not ported (the SSM's raise in ssm_block)
+MESHLESS_FAMILIES = ("encdec", "vlm")
+
+
+def refuse_mesh(cfg: ModelConfig, dist: L.Distribution) -> None:
+    """Raise on a mesh for the encdec and vlm families."""
+    if dist.mesh is not None and cfg.family in MESHLESS_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a mesh is not ported yet; ROADMAP "
+            f"queue 1, *Multi-device*, the sharded encoder-decoder and VLM, brings it")
 
 
 class Block(nn.Module):
-    """One decoder block: attn_norm, attn, mlp_norm, then moe (when the
-    config has experts) or mlp; for the SSM families ssm_norm and ssm."""
+    """One decoder block: attn_norm, attn, (cross_norm, cross with
+    ``cross``: whisper's decoder), mlp_norm, then moe (when the config has
+    experts) or mlp; for the SSM families ssm_norm and ssm."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None,
-                 expert_take=None):
+                 expert_take=None, *, cross: bool = False):
         super().__init__()
         ones = lambda: L._param(torch.ones(cfg.d_model, dtype=dtype, device=device))
         if cfg.family in SSM_FAMILIES:
@@ -63,6 +80,9 @@ class Block(nn.Module):
             return
         self.attn_norm = ones()
         self.attn = L.init_attention(gen, cfg, dtype, device)
+        if cross:
+            self.cross_norm = ones()
+            self.cross = L.init_attention(gen, cfg, dtype, device)
         self.mlp_norm = ones()
         if cfg.n_experts:
             self.moe = MOE.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
@@ -95,9 +115,12 @@ def n_groups(cfg: ModelConfig) -> int:
 
 class Transformer(nn.Module):
     """embed (V, d), final_norm (d,), lm_head (d, V), one Block per layer and,
-    for ``hybrid``, the shared block (drawn last). With ``gen=None`` the
-    weights are left uninitialized (to be copied in). ``expert_take`` cuts
-    each expert tensor to a rank's slice (``launch.sharding.expert_take``)."""
+    for ``hybrid``, the shared block (drawn last); for ``encdec`` the
+    encoder's blocks (``enc_layers``, ``n_enc_layers`` of them), then the
+    decoder's with cross-attention (``dec_layers``, ``n_layers``), then
+    ``enc_norm``. With ``gen=None`` the weights are left uninitialized (to
+    be copied in). ``expert_take`` cuts each expert tensor to a rank's slice
+    (``launch.sharding.expert_take``)."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None,
                  expert_take=None):
@@ -107,6 +130,13 @@ class Transformer(nn.Module):
         self.embed = L._normal((V, d), d ** -0.5, gen, dtype, device)
         self.final_norm = L._param(torch.ones(d, dtype=dtype, device=device))
         self.lm_head = L._normal((d, V), d ** -0.5, gen, dtype, device)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(Block(cfg, gen, dtype, device)
+                                            for _ in range(cfg.n_enc_layers))
+            self.dec_layers = nn.ModuleList(Block(cfg, gen, dtype, device, cross=True)
+                                            for _ in range(cfg.n_layers))
+            self.enc_norm = L._param(torch.ones(d, dtype=dtype, device=device))
+            return
         if cfg.family == "hybrid":
             n_groups(cfg)                   # raises unless the layers split into groups
         self.layers = nn.ModuleList(Block(cfg, gen, dtype, device, expert_take)
@@ -183,9 +213,10 @@ def gather_block(y: torch.Tensor, dist: L.Distribution, S: int) -> torch.Tensor:
 # Blocks (forward)
 # ---------------------------------------------------------------------------
 def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, positions,
-                   prefix_len=0, kv_cache=None, moe_impl: str = "tp",
+                   prefix_len=0, kv_cache=None, enc_out=None, moe_impl: str = "tp",
                    seq_sharded: bool = False):
-    """Returns (x, new_kv_cache)."""
+    """Returns (x, new_kv_cache). ``enc_out``: the layer's cross K/V, each
+    (B, Hkv, enc_seq, hd), attended after the self-attention."""
     if cfg.family in SSM_FAMILIES:
         h, new_cache = SSM.ssm_block(L.rms_norm(x, p.ssm_norm, cfg.norm_eps), p.ssm, cfg,
                                      dist, cache=kv_cache)
@@ -195,6 +226,10 @@ def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, position
         prefix_len=prefix_len, positions=positions, kv_cache=kv_cache,
         seq_sharded=seq_sharded)
     x = x + h
+    if enc_out is not None:
+        h, _ = L.attention_block(L.rms_norm(x, p.cross_norm, cfg.norm_eps), p.cross, cfg,
+                                 dist, causal=False, kv_override=enc_out)
+        x = x + h
     if cfg.n_experts:
         x = x + MOE.moe_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.moe, cfg, dist,
                               moe_impl=moe_impl, seq_sharded=seq_sharded)
@@ -202,6 +237,35 @@ def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, position
         x = x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg, dist,
                             seq_sharded=seq_sharded)
     return x, new_cache
+
+
+def _encoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL):
+    """Whisper's encoder block: non-causal self-attention (RoPE over the
+    frame positions), then the MLP."""
+    h, _ = L.attention_block(L.rms_norm(x, p.attn_norm, cfg.norm_eps), p.attn, cfg, dist,
+                             causal=False)
+    x = x + h
+    return x + L.mlp_block(L.rms_norm(x, p.mlp_norm, cfg.norm_eps), p.mlp, cfg, dist)
+
+
+def _cross_kv(enc: torch.Tensor, p: Block, cfg) -> tuple:
+    """A decoder layer's cross-attention K and V of the encoder output
+    ``enc`` (B, enc_seq, d), each (B, Hkv, enc_seq, hd)."""
+    B = enc.shape[0]
+    kc = L.dense(enc, p.cross.wk, "cross_k")
+    vc = L.dense(enc, p.cross.wv, "cross_v")
+    return (kc.reshape(B, -1, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2),
+            vc.reshape(B, -1, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2))
+
+
+def _encode(params: Transformer, cfg, frames: torch.Tensor,
+            run=lambda fn, h, blk: fn(h, blk)) -> torch.Tensor:
+    """The encoder over ``frames`` (B, enc_seq, d), then ``enc_norm``.
+    ``run(fn, h, blk)`` runs each block (``forward`` checkpoints it)."""
+    enc = frames
+    for blk in params.enc_layers:
+        enc = run(lambda h, b: _encoder_block(h, b, cfg), enc, blk)
+    return L.rms_norm(enc, params.enc_norm, cfg.norm_eps)
 
 
 def _shared_block(x, p: SharedBlock, cfg, dist: L.Distribution = L.LOCAL, *, positions,
@@ -239,31 +303,52 @@ def _logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Transformer, cfg: ModelConfig, batch: dict,
             dist: L.Distribution = L.LOCAL, *, remat: str = "block", moe_impl: str = "tp",
             return_hidden: bool = False) -> torch.Tensor:
-    """batch: {"tokens": (B, S)}. Returns logits (B, S, padded_vocab) f32, or
-    the final-norm hidden states (B, S, d) when ``return_hidden`` (the
-    chunked loss computes the head itself). ``remat`` "block" or "full"
-    checkpoints every block while gradients are recorded (the recompute
-    gives the same bits); "none" keeps every activation. On a mesh the
-    global batch goes in and the rank's block comes out (module
-    docstring); ``moe_impl`` "tp" or "ep" picks the MoE's parallelism."""
+    """batch: {"tokens": (B, S)} plus the family's extras: vlm {"patches":
+    (B, n_patches, d)}, placed ahead of the text; encdec {"frames": (B,
+    enc_seq, d)}, the encoder's input. Returns logits (B, S_total,
+    padded_vocab) f32 (S_total = n_patches + S for vlm), or the final-norm
+    hidden states (B, S_total, d) when ``return_hidden`` (the chunked loss
+    computes the head itself). ``remat`` "block" or "full" checkpoints every
+    block while gradients are recorded (the recompute gives the same bits);
+    "none" keeps every activation. On a mesh the global batch goes in and
+    the rank's block comes out (module docstring); ``moe_impl`` "tp" or "ep"
+    picks the MoE's parallelism."""
     if remat not in ("none", "block", "full"):
         raise ValueError(f"remat {remat!r} (expected none, block or full)")
+    refuse_mesh(cfg, dist)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     rows, pos = block_of(dist, tokens.shape[0], S)
     sp = seq_sharded(dist, S)
     x = _embed(params, cfg, tokens[rows, pos])
-    positions = torch.arange(pos.start, pos.stop, device=x.device)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        prefix_len = cfg.n_patches
+    positions = torch.arange(pos.start, pos.start + x.shape[1], device=x.device)
+    use_remat = remat != "none" and torch.is_grad_enabled()
+    run = lambda fn, h, blk: dispatch.checkpoint(fn, h, blk) if use_remat else fn(h, blk)
+
+    if cfg.family == "encdec":
+        enc = _encode(params, cfg, batch["frames"].to(x.dtype), run)
+
+        def dec_body(h, blk):
+            return _decoder_block(h, blk, cfg, dist, positions=positions,
+                                  enc_out=_cross_kv(enc, blk, cfg))[0]
+
+        for blk in params.dec_layers:
+            x = run(dec_body, x, blk)
+        if return_hidden:
+            return L.rms_norm(x, params.final_norm, cfg.norm_eps)
+        return _logits(params, cfg, x)
 
     def body(h, blk):
-        return _decoder_block(h, blk, cfg, dist, positions=positions, moe_impl=moe_impl,
-                              seq_sharded=sp)[0]
+        return _decoder_block(h, blk, cfg, dist, positions=positions, prefix_len=prefix_len,
+                              moe_impl=moe_impl, seq_sharded=sp)[0]
 
     def shared(h, blk):
         return _shared_block(h, blk, cfg, dist, positions=positions)[0]
 
-    use_remat = remat != "none" and torch.is_grad_enabled()
-    run = lambda fn, h, blk: dispatch.checkpoint(fn, h, blk) if use_remat else fn(h, blk)
     for i, blk in enumerate(params.layers):
         x = run(body, x, blk)
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
@@ -285,7 +370,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     {"state": (n_layers, B, g, e, p, n)} in f32. A hybrid's ``layers``
     leaves lead with (groups, attn_every) in place of n_layers, and
     ``shared`` holds each group's K/V of the shared block, (groups, B,
-    n_kv_heads, max_len, head_dim). (The int8 cache comes with a later
+    n_kv_heads, max_len, head_dim). An encdec cache adds ``cross``, each
+    decoder layer's K/V of the encoder output, {"k", "v": (n_layers, B,
+    n_kv_heads, enc_seq, head_dim)} in ``dtype``, which ``prefill`` fills;
+    a vlm cache is the dense one. (The int8 cache comes with a later
     slice.)"""
     check_family(cfg)
     dev = resolve_device(device)
@@ -309,7 +397,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     if cfg.family == "hybrid":
         ng = n_groups(cfg)
         return {"len": 0, "layers": ssm_cache(ng, cfg.attn_every), "shared": attn_cache(ng)}
-    return {"len": 0, "layers": attn_cache(cfg.n_layers)}
+    cache = {"len": 0, "layers": attn_cache(cfg.n_layers)}
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
+        cache["cross"] = {"k": zeros(*shape), "v": zeros(*shape)}
+    return cache
 
 
 @torch.inference_mode()
@@ -325,7 +417,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
     the device; with a tensor the step reads no host value, so it can be
     captured in a CUDA graph (``launch.batching``). ``cache["start"]``
     (B,), when present, is the continuous batcher's per-slot lower bound
-    of attention (dense and MoE)."""
+    of attention (dense, MoE and vlm). An encdec step attends each decoder
+    layer's cached cross K/V (``prefill`` fills them)."""
+    refuse_mesh(cfg, dist)
     layers = cache["layers"]
     # the batch axis: K/V (n, B, ...); an SSM state (..., B, g, e, p, n)
     rows = layers["state"].shape[-5] if cfg.family in SSM_FAMILIES else layers["k"].shape[1]
@@ -349,6 +443,14 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
         if hybrid:
             new_cache["shared"] = cache["shared"]
         return _logits(params, cfg, x), new_cache
+    if cfg.family == "encdec":
+        cross = cache["cross"]
+        for i, blk in enumerate(params.dec_layers):
+            kv = {"k": layers["k"][i], "v": layers["v"][i], "len": ln}
+            x, _ = _decoder_block(x, blk, cfg, dist, positions=pos, kv_cache=kv,
+                                  enc_out=(cross["k"][i], cross["v"][i]))
+        new_cache["cross"] = cross
+        return _logits(params, cfg, x), new_cache
     for i, blk in enumerate(params.layers):
         kv = {"k": layers["k"][i], "v": layers["v"][i], "len": ln, "start": start}
         x, _ = _decoder_block(x, blk, cfg, dist, positions=pos, kv_cache=kv,
@@ -363,9 +465,21 @@ def prefill(params: Transformer, cfg: ModelConfig, batch: dict, cache: dict,
             dist: L.Distribution = L.LOCAL, *, moe_impl: str = "tp"):
     """Fill the cache from a prompt by running decode_step over positions.
     Returns (last logits (B, V), cache). On a mesh the batch is the global
-    one, the cache and the logits the rank's rows (``block_of``)."""
+    one, the cache and the logits the rank's rows (``block_of``).
+
+    encdec: the encoder runs once over ``batch["frames"]`` and every decoder
+    layer's cross K/V are written into ``cache["cross"]`` in place first.
+    vlm: ``batch["patches"]`` is not read (the prompt's text alone fills
+    the cache), as in the reference."""
+    refuse_mesh(cfg, dist)
     tokens = batch["tokens"]
     tokens = tokens[block_of(dist, tokens.shape[0], 1)[0]]
+    if cfg.family == "encdec":
+        enc = _encode(params, cfg, batch["frames"])
+        for i, blk in enumerate(params.dec_layers):
+            kc, vc = _cross_kv(enc, blk, cfg)
+            cache["cross"]["k"][i].copy_(kc)
+            cache["cross"]["v"][i].copy_(vc)
     last = None
     for t in range(tokens.shape[1]):
         logits, cache = decode_step(params, cfg, cache, tokens[:, t:t + 1], dist,

@@ -167,8 +167,15 @@ class ScoreEngine:
     @torch.inference_mode()
     def _body(self) -> torch.Tensor:
         tokens, cfg = self._tokens, self.cfg
-        logits = forward(self.params, cfg, {"tokens": tokens}, remat="none")
-        logp = torch.log_softmax(logits[..., :cfg.vocab_size], dim=-1)
+        batch = {"tokens": tokens}
+        n, dev = tokens.shape[0], tokens.device
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((n, cfg.n_patches, cfg.d_model), device=dev)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((n, cfg.enc_seq, cfg.d_model), device=dev)
+        logits = forward(self.params, cfg, batch, remat="none")
+        # the text positions (vlm places the patches ahead of them)
+        logp = torch.log_softmax(logits[:, -tokens.shape[1]:, :cfg.vocab_size], dim=-1)
         lp = torch.gather(logp[:, :-1], -1, tokens[:, 1:, None])[..., 0]
         return torch.sum(lp * self._mask[:, 1:], dim=-1)
 

@@ -52,7 +52,9 @@ from .optimizer import Optimizer
 
 def make_loss_fn(cfg, *, z_loss: float = 0.0, remat: str = "block",
                  loss_chunk: int = 512):
-    """Next-token cross-entropy over ``{"tokens", "targets", "loss_mask"}``.
+    """Next-token cross-entropy over ``{"tokens", "targets", "loss_mask"}``
+    plus the family's extras (vlm ``patches``, scored on the text positions
+    only; encdec ``frames``).
 
     The loss runs over sequence chunks, each checkpointed, so the (B, S,
     vocab) logits are never held for the backward: each chunk's logits are
@@ -70,6 +72,8 @@ def make_loss_fn(cfg, *, z_loss: float = 0.0, remat: str = "block",
 
     def loss_fn(params, batch):
         hidden = T.forward(params, cfg, batch, remat=remat, return_hidden=True)
+        if cfg.family == "vlm":                 # text positions only
+            hidden = hidden[:, cfg.n_patches:]
         targets = batch["targets"].to(torch.int64)
         mask = batch.get("loss_mask")
         if mask is None:

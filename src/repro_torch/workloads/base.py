@@ -201,16 +201,24 @@ class WorkloadContext:
 
 def make_probe_batch(cfg, *, batch_size: int, seq: int, seed: int,
                      with_targets: bool = False, device=None) -> dict:
-    """A seeded probe batch (tokens, plus CE targets when the workload
-    differentiates), drawn on the CPU from ``torch.Generator(seed)`` so it
-    is the same on every device, then moved to ``device``. The draws differ
-    from ``jax.random``'s for the same seed; the same seed gives the same
-    tokens with or without targets, as in the reference."""
+    """A seeded probe batch for any config family (tokens, plus vlm
+    ``patches`` or encdec ``frames`` as 0.5 x normal, plus CE targets when
+    the workload differentiates), drawn on the CPU from
+    ``torch.Generator(seed)`` in that order, so it is the same on every
+    device, then moved to ``device``. The draws differ from ``jax.random``'s
+    for the same seed; the same seed gives the same tokens, patches and
+    frames with or without targets, as in the reference."""
     check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, seq),
                                      generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = 0.5 * torch.randn((batch_size, cfg.n_patches, cfg.d_model),
+                                             generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.5 * torch.randn((batch_size, cfg.enc_seq, cfg.d_model),
+                                            generator=gen)
     if with_targets:
         batch["targets"] = torch.randint(0, cfg.vocab_size, (batch_size, seq),
                                          generator=gen)

@@ -314,6 +314,36 @@ def hang_on_rank_one(dev):
         time.sleep(120)
 
 
+def encdec_vlm_on_a_mesh(dev) -> dict:
+    """``forward``, ``prefill``, ``decode_step`` and ``serve`` of reduced
+    whisper-large-v3 and paligemma-3b on a 1 x world mesh: {arch: {call:
+    the message each raises (None when it does not)}}."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, forward, init, init_cache, prefill
+    out = {}
+    for arch in ("whisper-large-v3", "paligemma-3b"):
+        cfg = get_config(arch).reduced()
+        params = init(cfg, seed=0, device=dev)
+        d = distribution_for(make_mesh((1, world_size())))
+        toks = torch.zeros((2, 4), dtype=torch.long)
+        batch = {"tokens": toks,
+                 "frames": torch.zeros((2, cfg.enc_seq, cfg.d_model)),
+                 "patches": torch.zeros((2, cfg.n_patches, cfg.d_model))}
+        cache = lambda: init_cache(cfg, 2, 8, dtype=torch.float32, device=dev)
+        out[arch] = {}
+        for name, call in (
+                ("forward", lambda: forward(params, cfg, batch, d)),
+                ("prefill", lambda: prefill(params, cfg, batch, cache(), d)),
+                ("decode_step", lambda: decode_step(params, cfg, cache(), toks[:, :1], d)),
+                ("serve", lambda: serve(cfg, params, toks, 2, device=dev, dist=d))):
+            try:
+                call()
+                out[arch][name] = None
+            except NotImplementedError as e:
+                out[arch][name] = str(e)
+    return out
+
+
 def ssm_on_a_mesh(dev) -> dict:
     """``forward`` and ``serve`` of reduced mamba2-1.3b on a 1 x world mesh:
     the message each raises (None when it does not)."""

@@ -134,10 +134,20 @@ def test_serve_refuses_params_on_another_device():
 
 
 def test_other_families_name_their_roadmap_item():
-    for arch, item in (("paligemma-3b", "The other families"),
-                       ("whisper-large-v3", "The other families")):
-        with pytest.raises(NotImplementedError, match=item):
-            init(get_config(arch).reduced(), device="cpu")
+    """The encdec and vlm families build and serve on one device; on a
+    two-rank CPU mesh ``forward``, ``prefill``, ``decode_step`` and ``serve``
+    of both raise with the ROADMAP item that brings their sharded form."""
+    from repro_torch.launch.mesh import spawn
+    from _torch_mesh_worker import encdec_vlm_on_a_mesh
+    for arch in ("paligemma-3b", "whisper-large-v3"):
+        init(get_config(arch).reduced(), device="cpu")
+    item = "*Multi-device*, the sharded encoder-decoder and VLM"
+    for rank in spawn(encdec_vlm_on_a_mesh, 2, timeout=120, collective_timeout=60):
+        assert set(rank) == {"whisper-large-v3", "paligemma-3b"}, rank
+        for arch, calls in rank.items():
+            assert set(calls) == {"forward", "prefill", "decode_step", "serve"}, calls
+            for call, msg in calls.items():
+                assert msg and item in msg and arch in msg, (arch, call, msg)
 
 
 def test_ssm_on_a_mesh_names_the_sharded_ssm():
@@ -155,6 +165,14 @@ def test_continuous_engine_refuses_ssm_families():
     with pytest.raises(SystemExit, match="family='ssm'"):
         TS.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
                  "--engine", "continuous"])
+
+
+def test_continuous_engine_refuses_encdec():
+    """As the reference's: whisper serves on the simple engine only."""
+    for engine in ("continuous", "routed"):
+        with pytest.raises(SystemExit, match="family='encdec'"):
+            TS.main(["--arch", "whisper-large-v3", "--reduced", "--device", "cpu",
+                     "--engine", engine])
 
 
 def test_cpu_tensors_launch_no_kernel():

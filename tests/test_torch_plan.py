@@ -85,9 +85,9 @@ def test_plan_deploys_the_reference_configs(path):
 
 
 def test_zoo_site_keys_of_unported_families_parse():
-    """Every zoo plan lists sites of whisper and paligemma, which the port
-    cannot build yet, and of mamba2 and zamba2; their keys all parse as
-    GemmSites."""
+    """The zoo plans list the sites of every family the port builds and
+    serves (whisper's adds ``cross_k`` and ``cross_v``); their keys all
+    parse as GemmSites."""
     for path in ZOO:
         for s in load_plan(path).gemm_sites():
             assert TD.GemmSite.parse(s.site).key == s.site

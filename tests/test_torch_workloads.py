@@ -389,6 +389,22 @@ def test_probe_batches_are_seeded_and_shared():
     assert torch.equal(a["tokens"], b["tokens"]) and a["tokens"].shape == (2, 8)
     assert set(b) == {"tokens", "targets", "loss_mask"}
     assert int(b["targets"].max()) < cfg.vocab_size and b["loss_mask"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TW.make_probe_batch(tget("paligemma-3b").reduced(), batch_size=1, seq=2, seed=0,
-                            device="cpu")
+    # the dense family's draws: tokens, then targets, from one generator
+    gen = torch.Generator().manual_seed(1)
+    assert torch.equal(b["tokens"], torch.randint(0, cfg.vocab_size, (2, 8), generator=gen))
+    assert torch.equal(b["targets"], torch.randint(0, cfg.vocab_size, (2, 8), generator=gen))
+    # the reference's extras: vlm patches and encdec frames, 0.5 x normal,
+    # the same with or without targets and for the same seed
+    for arch, key, rows in (("paligemma-3b", "patches", "n_patches"),
+                            ("whisper-large-v3", "frames", "enc_seq")):
+        fcfg = tget(arch).reduced()
+        x = TW.make_probe_batch(fcfg, batch_size=3, seq=5, seed=2, device="cpu")
+        y = TW.make_probe_batch(fcfg, batch_size=3, seq=5, seed=2, with_targets=True,
+                                device="cpu")
+        z = TW.make_probe_batch(fcfg, batch_size=3, seq=5, seed=4, device="cpu")
+        assert set(x) == {"tokens", key} and set(y) == {"tokens", key, "targets", "loss_mask"}
+        assert x[key].shape == (3, getattr(fcfg, rows), fcfg.d_model)
+        assert x[key].dtype == torch.float32
+        assert torch.equal(x[key], y[key]) and torch.equal(x["tokens"], y["tokens"])
+        assert not torch.equal(x[key], z[key])
+        assert 0.4 < float(x[key].std()) < 0.6
