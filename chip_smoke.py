@@ -323,7 +323,23 @@ Phases (any failure exits non-zero before the final line):
      layers over 32 frames and paligemma 1 layer over 8 patches (draws of
      that depth); the weights freed after each model; the seconds and the
      peak memory by part;
- 25. one JSON line of per-kernel numbers, then the ``ok`` line.
+ 25. placed parameters and ``launch.serve --mesh`` (``place_phase``): (a)
+     qwen3-0.6b at full width cut to 2 layers, served in the main process
+     (4 prompts of 4 tokens, 4 generated, FDP91_KERNEL; its peak memory),
+     then on a 2x2 world of four
+     ranks sharing the card over gloo under ``fsdp`` and ``decode_tp``: each
+     rank draws seed 0 on its host unit by unit, keeps its block of every
+     weight (``launch.sharding.param_specs``) on the card and gathers each
+     unit's leaves on use; on every rank the tokens equal the one-process
+     serve's, the dense kernel's launches (set to 0 just before the serve,
+     read just after) equal the FDP dispatches (less the Megatron MLP's
+     K-split), and the placed bytes on the card equal ``param_shardings``';
+     each rank's placed bytes beside the replicated figure, peak memory,
+     gathered bytes a forward, seconds in gathers and in all printed; (b)
+     ``python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced
+     --policy fdp91_kernel --mesh 2x2 --profile fsdp`` as a subprocess: rc 0
+     and the tokens of the same command without ``--mesh``;
+ 26. one JSON line of per-kernel numbers, then the ``ok`` line.
 
 The weights of each config are drawn once (``init``, seconds printed) and a
 host copy is kept; later phases of the same config and seed copy it back.
@@ -453,6 +469,19 @@ FAMILY_ARCHS = (("whisper-large-v3", {"n_enc_layers": 4, "n_layers": 4},
                  "paligemma_3b.json"))
 FAMILY_EQ_SHAPE, FAMILY_FWD_TOL = (1, 8), 1e-3
 FAMILY_CHECK_ROWS, FAMILY_CHECK_COLS = 64, 4096
+# Phase 25, placed parameters and ``launch.serve --mesh``: qwen3-0.6b at full
+# width cut to PLACE_LAYERS layers serves four prompts of PLACE_PROMPT
+# tokens, PLACE_GEN tokens generated, on a 2x2 world of four ranks sharing
+# the card over gloo, under each of PLACE_PROFILES. Depth, prompt and
+# generation are cut for the gathers: every decode step, each prompt token's
+# included, gathers every placed leaf over gloo (at 2 layers 1.37 GB a step,
+# the embedding and the head 1.24 GB of it; ~0.37 GB/s received a rank). With
+# 16-token prompts the phase took 189.24 s alone on an H100 80GB HBM3 at
+# 700 W, beside 795.49 s for phases 1-24. Then the CLI (PLACE_CLI, reduced
+# widths) with and without ``--mesh 2x2 --profile fsdp``
+PLACE_LAYERS, PLACE_PROMPT, PLACE_GEN, PLACE_PROFILES = 2, 4, 4, ("fsdp", "decode_tp")
+PLACE_TIMEOUT, PLACE_COLLECTIVE_TIMEOUT = 600, 300
+PLACE_CLI = ("--arch", "qwen3-0.6b", "--reduced", "--policy", "fdp91_kernel")
 # kernel name -> the substring of its device symbol in a profiler trace
 TRACE_NAMES = {"fdp_gemm": "fdp_gemm_kernel", "fdp_ragged_gemm": "fdp_ragged_gemm_kernel",
                "fdp_ragged_dw": "fdp_ragged_dw_kernel"}
@@ -3085,6 +3114,185 @@ def family_phase(torch, dev) -> dict:
     return out
 
 
+def place_rank(dev, cfg, prompts, want: list) -> dict:
+    """Phase 25 on one rank of the 2x2 world (module docstring): under each
+    of PLACE_PROFILES the placed ``init`` (each unit drawn on the host, cut
+    to the rank's blocks, then moved), its bytes on the card beside
+    ``param_shardings``' figure, and one serve of ``prompts`` with the dense
+    kernel's launches set to 0 just before and read just after, against the
+    one-process serve's tokens ``want``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import dispatch as D
+    from repro_torch.kernels import fdp_gemm as K
+    from repro_torch.launch.serve import FDP91_KERNEL, serve
+    from repro_torch.launch.sharding import distribution_for, make_mesh, param_shardings
+    from repro_torch.models import init
+    from repro_torch.models.transformer import init_abstract
+    from repro_torch.parallel.placement import STATS
+
+    mesh = make_mesh((2, 2))
+    out = {"rank": dist.get_rank(), "coords": mesh.coords, "backends": mesh.backends(),
+           "profiles": {}}
+    # the Megatron MLP's K-split at decode is a reduce dispatch: plain limbs
+    # + fdp_psum, no kernel launch (as in phase 22)
+    reduce_calls = [0]
+    dispatch_reduce = D._dispatch_reduce
+
+    def counted_reduce(*args, **kw):
+        reduce_calls[0] += 1
+        return dispatch_reduce(*args, **kw)
+
+    D._dispatch_reduce = counted_reduce
+    prompts = prompts.to(dev)
+    dtype = getattr(torch, cfg.param_dtype)
+    for profile in PLACE_PROFILES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = distribution_for(mesh, profile, FDP91_KERNEL)
+        params = init(cfg, 0, device=dev, dist=d, profile=profile)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        held = list(params.parameters())
+        spec_bytes = sum(pl.nbytes(dtype) for pl in
+                         param_shardings(cfg, init_abstract(cfg), mesh, profile).values())
+        res = {"init_s": init_s, "spec_bytes": spec_bytes,
+               "on_card": sum(p.numel() * p.element_size() for p in held if p.device == dev),
+               "off_card": sum(p.numel() for p in held if p.device != dev)}
+        del held
+        torch.cuda.reset_peak_memory_stats(dev)
+        D.reset_sites_seen()
+        reduce_calls[0] = 0
+        K.fdp_gemm.launches = 0
+        STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with D.use_policy(FDP91_KERNEL):
+            toks = serve(cfg, params, prompts, PLACE_GEN, device=dev, dist=d)
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = K.fdp_gemm.launches
+        res["dispatches"] = sum(D.site_calls().values()) - reduce_calls[0]
+        res["reduce_dispatches"] = reduce_calls[0]
+        res["equal"] = toks.tolist() == want
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["gathers"] = STATS.snapshot()
+        out["profiles"][profile] = res
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    D._dispatch_reduce = dispatch_reduce
+    return out
+
+
+def place_phase(torch, dev) -> dict:
+    """Phase 25 (module docstring): the one-process serve in the main
+    process, the 2x2 world (``place_rank``), its gates and numbers, then the
+    CLI with and without ``--mesh``. Returns the launches by profile and the
+    phase's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch as D
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import FDP91_KERNEL, serve
+    from repro_torch.models import init
+    from repro_torch.models.transformer import init_abstract
+    from repro_torch.parallel.placement import placed_bytes
+
+    seconds = {}
+    t = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=PLACE_LAYERS)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PLACE_PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    # what earlier phases left allocated in this process is not the serve's
+    base = torch.cuda.memory_allocated(dev)
+    params = init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with D.use_policy(FDP91_KERNEL):
+        want = serve(cfg, params, prompts, PLACE_GEN, device=dev).tolist()
+    torch.cuda.synchronize()
+    replicated_peak = torch.cuda.max_memory_allocated(dev) - base
+    replicated = placed_bytes(params)
+    if replicated != placed_bytes(init_abstract(cfg)):
+        fail("qwen3-0.6b's one-process parameters != init_abstract's bytes")
+    del params
+    torch.cuda.empty_cache()
+    seconds["one-process serve"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    ranks = spawn(place_rank, 4, device="cuda:0", args=(cfg, prompts, want),
+                  timeout=PLACE_TIMEOUT, collective_timeout=PLACE_COLLECTIVE_TIMEOUT)
+    seconds["2x2 world"] = time.perf_counter() - t
+    launches = {}
+    for r in ranks:
+        tag = f"rank {r['rank']} {r['coords']}"
+        if set(r["backends"].values()) != {"gloo"}:
+            fail(f"{tag}: the 2x2 mesh's groups run {r['backends']}, not gloo")
+        for profile, res in r["profiles"].items():
+            if res["off_card"] or res["on_card"] != res["spec_bytes"]:
+                fail(f"{tag} {profile}: {res['on_card']} bytes of placed parameters on the "
+                     f"card ({res['off_card']} elements elsewhere), param_shardings says "
+                     f"{res['spec_bytes']}")
+            if not res["equal"]:
+                fail(f"{tag} {profile}: the placed serve's tokens != the one-process "
+                     f"serve's {want}")
+            if res["launches"] <= 0 or res["launches"] != res["dispatches"]:
+                fail(f"{tag} {profile}: the placed serve launched the dense kernel "
+                     f"{res['launches']} times, its FDP dispatches were {res['dispatches']}")
+            if res["gathers"]["calls"] <= 0:
+                fail(f"{tag} {profile}: the placed serve gathered nothing")
+            launches[profile] = launches.get(profile, 0) + res["launches"]
+    steps = PLACE_PROMPT + PLACE_GEN       # prefill runs a decode step a prompt token
+    log(f"(a) qwen3-0.6b at full width, {PLACE_LAYERS} layers, placed on 2x2 (four ranks on "
+        f"the card, gloo): {BATCH} x {PLACE_PROMPT} prompts, {PLACE_GEN} tokens, FDP91_KERNEL; "
+        f"tokens == the one-process serve's on every rank, launches == FDP dispatches, "
+        f"placed bytes on the card == param_shardings'. The one-process serve: parameters "
+        f"{replicated} B, peak {replicated_peak / 1e9:.4f} GB above what earlier phases "
+        f"left allocated")
+    for profile in PLACE_PROFILES:
+        for r in ranks:
+            res = r["profiles"][profile]
+            g = res["gathers"]
+            log(f"  {profile} rank {r['rank']} {r['coords']}: placed {res['on_card']} B "
+                f"(replicated {replicated} B), peak {res['peak_bytes'] / 1e9:.4f} "
+                f"GB, gathered {g['bytes'] / steps / 1e9:.4f} GB a decode step ({steps} "
+                f"steps, {g['received'] / steps / 1e9:.4f} GB received, {g['calls']} "
+                f"leaves, gathered alive at once at most {g['peak_live'] / 1e9:.4f} GB), "
+                f"{g['seconds']:.2f} s in gathers of {res['seconds']:.2f} s serving "
+                f"({BATCH * PLACE_GEN / res['seconds']:.3f} tok/s), launches {res['launches']} "
+                f"== dispatches {res['dispatches']} (+ {res['reduce_dispatches']} reduce "
+                f"dispatches), init {res['init_s']:.2f} s")
+
+    # -- (b) the CLI with and without --mesh ------------------------------------
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = {}
+    for name, extra in (("mesh", ("--mesh", "2x2", "--profile", "fsdp")), ("one process", ())):
+        t = time.perf_counter()
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *PLACE_CLI, *extra]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=PLACE_TIMEOUT)
+        if proc.returncode != 0:
+            fail(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stdout}\n"
+                 f"{proc.stderr[-4000:]}")
+        seconds[f"CLI, {name}"] = time.perf_counter() - t
+        cli[name] = {"cmd": " ".join(cmd[1:]), "stdout": proc.stdout,
+                     "sample": [l for l in proc.stdout.splitlines() if l.startswith("sample:")]}
+    if len(cli["mesh"]["sample"]) != 1 or cli["mesh"]["sample"] != cli["one process"]["sample"]:
+        fail(f"the CLI's tokens with --mesh 2x2 {cli['mesh']['sample']} != without "
+             f"{cli['one process']['sample']}")
+    if "mesh 2x2 (data gloo, model gloo) profile=fsdp: placed" not in cli["mesh"]["stdout"]:
+        fail(f"the CLI with --mesh printed no placement line:\n{cli['mesh']['stdout']}")
+    log(f"(b) {cli['mesh']['cmd']}: rc 0, tokens == the same command without --mesh:")
+    for line in cli["mesh"]["stdout"].splitlines():
+        log("    " + line)
+    log("phase 25 seconds by part: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"launches": launches, "replicated_bytes": replicated,
+            "replicated_peak_bytes": replicated_peak, "seconds": seconds,
+            "ranks": ranks, "cli": {k: v["sample"] for k, v in cli.items()}}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4863,12 +5071,16 @@ def main() -> None:
     phase("24")
     families = family_phase(torch, dev)
 
+    # -- 25. placed parameters and launch.serve --mesh -------------------------------
+    phase("25")
+    placed = place_phase(torch, dev)
+
     phase("")
     PHASE_S["18"] -= ref18_s
     PHASE_S["21"] -= mesh["p22_wall_s"] + ref21_s
     PHASE_S["22"] = p22_s
     log(f"seconds by phase: {json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
-        f"phases 1-24 {sum(PHASE_S.values()):.2f} s")
+        f"phases 1-25 {sum(PHASE_S.values()):.2f} s")
     moe_in = ragged_sites["moe_in"]
     dw_in = dw_sites["moe_in"]
     hot = loop_sites["bench hot shape"]
@@ -4885,7 +5097,8 @@ def main() -> None:
                      + mesh["launches"] + mesh["p22"]["launches"]["fdp_gemm"]
                      + sum(r["launches"] for r in ssm.values())
                      + sum(r["launches"] + r.get("graph_engine", {}).get("warmup_launches", 0)
-                           for r in families.values())),
+                           for r in families.values())
+                     + sum(placed["launches"].values())),
         "launches_by_path": {"qwen3-0.6b serve": qwen["launches"]["fdp_gemm"],
                              "dbrx-132b serve": dbrx["launches"]["fdp_gemm"],
                              "dbrx-132b train step": train["launches"]["fdp_gemm"],
@@ -4912,7 +5125,10 @@ def main() -> None:
                                 for arch, r in families.items()},
                              **{f"{arch} graph engine's two warm-up steps (phase 24)":
                                 r["graph_engine"]["warmup_launches"]
-                                for arch, r in families.items() if "graph_engine" in r}},
+                                for arch, r in families.items() if "graph_engine" in r},
+                             **{f"qwen3-0.6b placed serve 2x2 {profile}, {PLACE_LAYERS} layers, "
+                                f"summed over 4 ranks on the card (phase 25)": n
+                                for profile, n in placed["launches"].items()}},
         "graph_replays_traced": {
             **replay_events["fdp_gemm"],
             "qwen3-0.6b routed tier, fdp91_kernel (phase 19)": None if routed_replays is None
@@ -4932,7 +5148,7 @@ def main() -> None:
         "serve_trace": qwen["trace"], "tailoring": tailoring, "workloads": workloads,
         "continuous": continuous, "routed_serving": routed, "schedules": sched,
         "mesh": {k: v for k, v in mesh.items() if k != "launches"},
-        "ssm_families": ssm, "encdec_vlm_families": families,
+        "ssm_families": ssm, "encdec_vlm_families": families, "placed": placed,
     }, {
         "name": "fdp_ragged_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fdp_ragged_gemm.cu",

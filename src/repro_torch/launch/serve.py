@@ -26,6 +26,24 @@ Under a precision plan (per-site numerics loaded from JSON):
 ``--policy`` picks one of the named uniform policies instead; passing both
 is an error, so that it is never unclear which policy served.
 
+On a mesh (``--mesh RxC --profile {fsdp,ddp,decode_tp}``, ``--engine
+simple`` only, as in the reference; ``--profile`` defaults to
+``decode_tp``): where the reference runs one process over many devices,
+the port spawns R*C ranks on ``--device`` (``launch.mesh.spawn``: gloo
+where the ranks share a card or run on the CPU, NCCL where each rank has a
+card of its own). Each rank builds ``make_mesh``, ``distribution_for(profile,
+policy)`` and the placed ``init(..., profile=)``: it holds its block of every
+weight (``launch.sharding.param_specs``) and gathers each unit's leaves on
+use. Every rank serves through ``serve(dist=)``; rank 0 prints the usual
+line, the mesh, the profile, each rank's placed bytes and the bytes
+gathered a decode step (``prefill`` runs one a prompt token). On the CPU,
+a gloo world of CPU ranks:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --reduced --device cpu --mesh 2x2 --profile fsdp
+On the card (four ranks sharing it over gloo):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --reduced --policy fdp91_kernel --mesh 2x2 --profile fsdp
+
 ``--engine continuous`` (KV-cache families only, as in the reference: the
 SSM, hybrid and encdec families serve on the simple engine) routes the same
 requests through the fixed-slot
@@ -70,14 +88,19 @@ from repro_torch.core.dispatch import (FDP91, MXU_BF16, MXU_FP32, GemmConfig,
 from repro_torch.core.formats import FP32
 from repro_torch.core.schedules import preload_schedules
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import PROFILES, distribution_for, make_mesh, parse_mesh
 from repro_torch.models import LOCAL, decode_step, init, init_cache, prefill
-from repro_torch.models.transformer import block_of, gather_block
+from repro_torch.models.transformer import block_of, gather_block, init_abstract
+from repro_torch.parallel.placement import STATS, placed_bytes
 
 # Every site through the hand-written FDP GEMM kernel at the paper's
 # <30,30,-30> 91-bit accumulator (FDP91's numerics in ``pallas`` mode).
 FDP91_KERNEL = NumericsPolicy(
     GemmConfig(FP32, AccumulatorSpec.paper_91bit(), "pallas"), name="fdp91_kernel")
 POLICIES = {p.name: p for p in (MXU_BF16, MXU_FP32, FDP91, FDP91_KERNEL)}
+# a --mesh world: the whole serve, and one collective (a gather of a unit
+# over gloo, host-staged where ranks share a card)
+MESH_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 3600.0, 600.0
 
 
 def policy_from_args(args) -> NumericsPolicy:
@@ -136,7 +159,7 @@ def _zoo_envelope(plans_dir: str, arch: str):
     return None
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
@@ -145,6 +168,11 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions)")
+    ap.add_argument("--mesh", default=None,
+                    help="RxC (data x model) mesh, e.g. 2x2: R*C ranks spawned on --device, "
+                         "each holding its block of every weight")
+    ap.add_argument("--profile", default="decode_tp", choices=list(PROFILES),
+                    help="placement profile when --mesh is set")
     ap.add_argument("--engine", default="simple", choices=["simple", "continuous", "routed"],
                     help="simple whole-batch decode, the fixed-slot ContinuousBatcher on "
                          "one CUDA graph captured under the policy, or the "
@@ -176,17 +204,41 @@ def main(argv=None):
                          "serving completes")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="export the span timeline as Chrome-trace JSON")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> torch.Tensor:
+    """The CLI (module docstring). Returns the generated tokens (B, gen) on
+    the host; with ``--mesh``, rank 0's (every rank's are the same)."""
+    args = _parser().parse_args(argv)
     if args.engine == "routed" and (args.precision_plan or args.policy):
         raise SystemExit("--engine routed picks plans from the zoo MANIFEST; use "
                          "--workload, not --precision-plan or --policy")
-    policy = policy_from_args(args)
+    policy_from_args(args)             # a bad --policy/--precision-plan fails before any spawn
+    if args.mesh:
+        if args.engine != "simple":
+            raise SystemExit("--mesh is supported with --engine simple only")
+        from repro_torch.launch.mesh import spawn
+        r, c = parse_mesh(args.mesh)
+        return spawn(_mesh_rank, r * c, device=args.device, args=(args,),
+                     timeout=MESH_TIMEOUT_S, collective_timeout=MESH_COLLECTIVE_TIMEOUT_S)[0]
+    return _run(args, resolve_device(args.device))
 
-    dev = resolve_device(args.device)
+
+def _mesh_rank(dev, args) -> torch.Tensor:
+    return _run(args, dev, make_mesh(parse_mesh(args.mesh)))
+
+
+def _run(args, dev: torch.device, mesh=None) -> torch.Tensor:
+    """Serve as the CLI asks on ``dev``; on ``mesh`` (every rank of its
+    world runs this) under ``args.profile``'s placement, rank 0 printing."""
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    policy = policy_from_args(args)
     n_sched = preload_schedules(backend=dev.type)
     if n_sched:
-        print(f"[serve] schedule zoo: {n_sched} GEMM schedules preloaded "
-              f"(warm plan cache, zero autotune misses)")
+        say(f"[serve] schedule zoo: {n_sched} GEMM schedules preloaded "
+            f"(warm plan cache, zero autotune misses)")
     cfg = get_config(args.arch)
     base_arch = cfg.name
     if args.reduced:
@@ -195,16 +247,21 @@ def main(argv=None):
         raise SystemExit(f"--engine {args.engine} supports KV-cache families "
                          f"(dense/moe/vlm); {args.arch} is family={cfg.family!r} — use "
                          f"the default --engine simple")
-    params = init(cfg, seed=0, device=dev)
+    dist = LOCAL
+    if mesh is None:
+        params = init(cfg, seed=0, device=dev)
+    else:
+        dist = distribution_for(mesh, args.profile, numerics_policy=policy)
+        params = init(cfg, seed=0, device=dev, dist=dist, profile=args.profile)
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen)
     srv = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and rank0:
         from repro_torch.obs import start_metrics_server
         srv = start_metrics_server(args.metrics_port)
-        print(f"[serve] metrics at http://127.0.0.1:{srv.server_port}/metrics "
-              f"(+ /metrics.json)")
+        say(f"[serve] metrics at http://127.0.0.1:{srv.server_port}/metrics "
+            f"(+ /metrics.json)")
 
     monitored = bool(args.monitor or args.metrics_dump)
     mon_ctx = contextlib.nullcontext(None)
@@ -218,10 +275,11 @@ def main(argv=None):
             envelope = _zoo_envelope(args.plans, base_arch)
         mon_ctx = monitoring(envelope=envelope)
         if args.engine != "simple":
-            print(f"[serve] --monitor: the {args.engine} engine is captured with the "
-                  f"monitor's reductions inside (a CUDA graph on the card, eager steps "
-                  f"on the CPU)")
+            say(f"[serve] --monitor: the {args.engine} engine is captured with the "
+                f"monitor's reductions inside (a CUDA graph on the card, eager steps "
+                f"on the CPU)")
 
+    STATS.reset()
     t0 = time.perf_counter()
     stack = contextlib.ExitStack()
     mon = stack.enter_context(mon_ctx)
@@ -260,20 +318,32 @@ def main(argv=None):
         policy_name = policy.name
     else:
         with use_policy(policy):
-            toks = serve(cfg, params, prompts, args.gen, device=dev)
+            toks = serve(cfg, params, prompts, args.gen, device=dev, dist=dist)
         policy_name = policy.name
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     stack.close()                      # uninstall the monitor, fold its queue
     dt = time.perf_counter() - t0
-    print(f"[serve] {args.arch}: engine={args.engine} policy={policy_name} "
-          f"device={dev} batch={args.batch} prompt={args.prompt_len} "
-          f"gen={args.gen} in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
-    print("sample:", toks[0].tolist())
+    toks = toks.cpu()
+    say(f"[serve] {args.arch}: engine={args.engine} policy={policy_name} "
+        f"device={dev} batch={args.batch} prompt={args.prompt_len} "
+        f"gen={args.gen} in {dt:.2f}s ({args.batch * args.gen / dt:.1f} tok/s)")
+    if mesh is not None:
+        import torch.distributed as tdist
+        held = [None] * mesh.size
+        tdist.all_gather_object(held, placed_bytes(params))
+        steps = args.prompt_len + args.gen     # prefill runs a decode step a prompt token
+        say(f"[serve] mesh {mesh.describe()} ({', '.join(f'{a} {b}' for a, b in mesh.backends().items())}) "
+            f"profile={args.profile}: placed {', '.join(f'{b / 1e6:.3f}' for b in held)} MB "
+            f"by rank (replicated {placed_bytes(init_abstract(cfg)) / 1e6:.3f} MB); gathered "
+            f"{STATS.bytes / steps / 1e6:.3f} MB a decode step ({steps} steps, "
+            f"{STATS.received / steps / 1e6:.3f} MB received, {STATS.seconds:.2f} s "
+            f"in gathers on rank 0)")
+    say("sample:", toks[0].tolist())
     if mon is not None:
-        print(f"[serve] monitor: worst={mon.worst_status()} over "
-              f"{len(mon.statuses())} sites, overflow_events={mon.overflow_events()}")
-    if args.metrics_dump:
+        say(f"[serve] monitor: worst={mon.worst_status()} over "
+            f"{len(mon.statuses())} sites, overflow_events={mon.overflow_events()}")
+    if args.metrics_dump and rank0:
         from repro_torch.obs import default_registry
         dump = {"kind": "repro.obs.ServingMetricsDump", "version": 1,
                 "arch": args.arch, "engine": args.engine,
@@ -281,15 +351,17 @@ def main(argv=None):
                 "monitor": mon.snapshot() if mon is not None else None}
         with open(args.metrics_dump, "w") as f:
             json.dump(dump, f, indent=1, sort_keys=True, default=str)
-        print(f"[serve] metrics dump -> {args.metrics_dump}")
-    if args.trace_out:
+        say(f"[serve] metrics dump -> {args.metrics_dump}")
+    if args.trace_out and rank0:
         from repro_torch.obs import save_chrome_trace
         n_ev = save_chrome_trace(args.trace_out)
-        print(f"[serve] chrome trace ({n_ev} events) -> {args.trace_out}")
+        say(f"[serve] chrome trace ({n_ev} events) -> {args.trace_out}")
     if srv is not None:
         if args.metrics_hold > 0:
             time.sleep(args.metrics_hold)
         srv.shutdown()
+    return toks
+
 
 if __name__ == "__main__":
     main()

@@ -10,7 +10,9 @@ the port's ``Transformer``; an encdec tree's ``enc_layers`` and
 (the hybrid's ``shared`` block, ``enc_norm``) carry none. ``params_to_numpy`` is its inverse: the reference's
 tree of numpy arrays, from the module's parameters or from any
 ``{parameter name: tensor}`` dict (gradients, optimizer moments), so two
-trees can be compared leaf by leaf.
+trees can be compared leaf by leaf. ``reference_path`` names a parameter's
+leaf in the reference's tree (``launch.sharding.param_specs`` reads the
+reference's rules through it).
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ def _layer_axes(cfg: ModelConfig, stack: str = "layers") -> tuple:
 
 def _n_layers(cfg: ModelConfig, stack: str) -> int:
     return cfg.n_enc_layers if stack == "enc_layers" else cfg.n_layers
+
+
+def reference_path(name: str, cfg: ModelConfig) -> tuple:
+    """(path, lead): the reference's ``/``-joined path of the port's
+    parameter ``name`` ("layers.3.attn.wq" -> "layers/attn/wq") and the
+    leading layer axes its leaf stacks there (``()`` outside a stack)."""
+    parts = name.split(".")
+    if parts[0] in LAYER_STACKS:
+        return "/".join([parts[0]] + parts[2:]), _layer_axes(cfg, parts[0])
+    return "/".join(parts), ()
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Transformer:

@@ -37,8 +37,10 @@ class Distribution:
     is the single-device run (``LOCAL``). With one, the blocks run the
     rank's block of every activation (module docstring); data parallelism
     alone runs the whole model a rank (``train.loop.make_mesh_train_step``).
-    The CLI's ``--mesh``/``--profile`` and the parameter placements wait for
-    ROADMAP queue 1, *Multi-device*, placement and entry points."""
+    The parameters may be whole on every rank or placed, each rank holding
+    its block of every weight (``launch.sharding.param_specs``) and every
+    unit gathering its leaves on use: the blocks read the same weights
+    either way. The serve CLI's ``--mesh``/``--profile`` places them."""
 
     mesh: object = None                       # launch.mesh.DeviceMesh | None
     dp_axes: tuple = ("data",)                # batch axes (may include "pod")

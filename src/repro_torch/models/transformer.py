@@ -21,6 +21,13 @@ that block of the logits; ``gather_block`` puts the blocks back together.
 The SSM and hybrid families raise on a mesh (``ssm.ssm_block``), the
 encdec and vlm families too (``refuse_mesh``).
 
+Placed parameters (``init(..., profile=)`` or ``launch.sharding.place``):
+each rank holds its block of every weight (``launch.sharding.param_specs``)
+and each unit gathers its leaves just before it runs and drops them after
+(``parallel.placement.gathered``): a block in ``_decoder_block``, the
+embedding in ``_embed``, ``final_norm`` with the head in ``_logits``. The
+blocks read the gathered weights as they read replicated ones.
+
 Parameters map one-to-one onto the reference's tree: its ``layers.*``
 leaves carry a leading layer axis (two for ``hybrid``: group, then position
 in the group), here ``layers[i].*`` is one module per layer, layer ``i``
@@ -46,6 +53,7 @@ from torch import nn
 
 from repro_torch.core import dispatch
 from repro_torch.device import resolve_device
+from repro_torch.parallel.placement import attach, gathered
 
 from . import layers as L
 from . import moe as MOE
@@ -120,16 +128,24 @@ class Transformer(nn.Module):
     decoder's with cross-attention (``dec_layers``, ``n_layers``), then
     ``enc_norm``. With ``gen=None`` the weights are left uninitialized (to
     be copied in). ``expert_take`` cuts each expert tensor to a rank's slice
-    (``launch.sharding.expert_take``)."""
+    (``launch.sharding.expert_take``). ``place(name, unit)``, when given
+    (dense and moe families), takes each unit drawn whole on the host (a
+    top-level parameter, a block) and returns it on ``device`` cut to the
+    rank's blocks (``launch.sharding.placer``): the host holds one unit at
+    a time."""
 
     def __init__(self, cfg: ModelConfig, gen=None, dtype=torch.float32, device=None,
-                 expert_take=None):
+                 expert_take=None, place=None):
         super().__init__()
         check_family(cfg)
+        keep = (lambda name, unit: unit) if place is None else place
+        if place is not None:
+            device = torch.device("cpu")
         V, d = cfg.padded_vocab, cfg.d_model
-        self.embed = L._normal((V, d), d ** -0.5, gen, dtype, device)
-        self.final_norm = L._param(torch.ones(d, dtype=dtype, device=device))
-        self.lm_head = L._normal((d, V), d ** -0.5, gen, dtype, device)
+        self.embed = keep("embed", L._normal((V, d), d ** -0.5, gen, dtype, device))
+        self.final_norm = keep("final_norm",
+                               L._param(torch.ones(d, dtype=dtype, device=device)))
+        self.lm_head = keep("lm_head", L._normal((d, V), d ** -0.5, gen, dtype, device))
         if cfg.family == "encdec":
             self.enc_layers = nn.ModuleList(Block(cfg, gen, dtype, device)
                                             for _ in range(cfg.n_enc_layers))
@@ -139,27 +155,43 @@ class Transformer(nn.Module):
             return
         if cfg.family == "hybrid":
             n_groups(cfg)                   # raises unless the layers split into groups
-        self.layers = nn.ModuleList(Block(cfg, gen, dtype, device, expert_take)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(keep(f"layers.{i}", Block(cfg, gen, dtype, device, expert_take))
+                                    for i in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared = SharedBlock(cfg, gen, dtype, device)
 
 
 def init(cfg: ModelConfig, seed: int = 0, device=None, dist: L.Distribution = L.LOCAL,
-         moe_impl: str = "tp") -> Transformer:
+         moe_impl: str = "tp", profile: str = None) -> Transformer:
     """Random parameters on ``device`` (CUDA unless the caller asks for
     another), drawn in module order from a CPU ``torch.Generator`` seeded
     with ``seed``: the same weights on every device. On a mesh each expert
     tensor is cut to the rank's slice for ``moe_impl`` on the host, after
     its draw and before the move: the slices of the full draw, and no rank
-    holds the full experts on the device."""
+    holds the full experts on the device. With ``profile`` (a launch
+    profile, ``dist`` its ``distribution_for``) every parameter is placed
+    instead: each unit is drawn on the host and cut to the rank's blocks of
+    ``launch.sharding.param_specs`` before the move (module docstring)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    if profile is not None:
+        from repro_torch.launch.sharding import placer
+        if moe_impl != "tp":
+            raise ValueError(f"placed experts are read as TP slices, not moe_impl {moe_impl!r}")
+        place, shardings = placer(cfg, dist, profile, dev)
+        return attach(Transformer(cfg, gen, dtype, dev, place=place), shardings)
     take = None
     if dist.mesh is not None and cfg.n_experts:
         from repro_torch.launch.sharding import expert_take
         take = expert_take(cfg, dist, moe_impl)
-    return Transformer(cfg, gen, getattr(torch, cfg.param_dtype), dev, take)
+    return Transformer(cfg, gen, dtype, dev, take)
+
+
+def init_abstract(cfg: ModelConfig) -> Transformer:
+    """The parameters' names, shapes and dtypes with no storage (the
+    ``meta`` device), as the reference's ``init_abstract``."""
+    return Transformer(cfg, None, getattr(torch, cfg.param_dtype), torch.device("meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +248,9 @@ def _decoder_block(x, p: Block, cfg, dist: L.Distribution = L.LOCAL, *, position
                    prefix_len=0, kv_cache=None, enc_out=None, moe_impl: str = "tp",
                    seq_sharded: bool = False):
     """Returns (x, new_kv_cache). ``enc_out``: the layer's cross K/V, each
-    (B, Hkv, enc_seq, hd), attended after the self-attention."""
+    (B, Hkv, enc_seq, hd), attended after the self-attention. A placed
+    block's leaves are gathered first (module docstring)."""
+    p = gathered(p)
     if cfg.family in SSM_FAMILIES:
         h, new_cache = SSM.ssm_block(L.rms_norm(x, p.ssm_norm, cfg.norm_eps), p.ssm, cfg,
                                      dist, cache=kv_cache)
@@ -284,10 +318,11 @@ def _shared_block(x, p: SharedBlock, cfg, dist: L.Distribution = L.LOCAL, *, pos
 # Embedding / head
 # ---------------------------------------------------------------------------
 def _embed(params: Transformer, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens]
+    return gathered(params, ("embed",)).embed[tokens]
 
 
 def _logits(params: Transformer, cfg, x: torch.Tensor) -> torch.Tensor:
+    params = gathered(params, ("final_norm", "lm_head"))
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.dense(x.to(torch.float32), params.lm_head.to(torch.float32), "lm_head")
     if cfg.padded_vocab != cfg.vocab_size:
